@@ -1,7 +1,7 @@
-"""comms_tpu — a TPU-native software-radio pipeline framework.
+"""comms_tpu — a software-radio pipeline framework in JAX.
 
 A from-scratch re-design of the capabilities of ostrosco/comms-rs
-(a threaded Rust dataflow-node DSP framework) for TPU hardware:
+(a threaded Rust dataflow-node DSP framework) for accelerators:
 
 * the thread-per-node channel-passing runtime (reference
   ``src/node/mod.rs``) becomes **pure functions over batched sample
@@ -15,8 +15,8 @@ A from-scratch re-design of the capabilities of ostrosco/comms-rs
   ``jax.sharding.Mesh``** with overlap-save halo exchange via
   ``ppermute``; channelized workloads shard the channel axis
   (``all_to_all`` corner turns);
-* hot kernels (FIR, polyphase resampler/channelizer, fused FM chain)
-  have Pallas TPU implementations in :mod:`comms_tpu.kernels`.
+* the FM receive chain has a hand-written GPU kernel (Pallas through
+  Triton) in :mod:`comms_tpu.kernels`; every other op is plain XLA.
 
 Layout
 ------
@@ -27,12 +27,12 @@ Layout
               streaming driver, checkpointing, metrics.
 ``parallel``  mesh helpers, time-block sharding with halo exchange,
               channel sharding, distributed FFT, multi-host init.
-``kernels``   Pallas TPU kernels for the hot ops.
+``kernels``   the fused FM-chain kernel for NVIDIA GPUs.
 ``io``        raw IQ file I/O, socket/ZMQ transport, audio sink.
 ``hardware``  radio source/sink protocols, file-replay radio, rtl-sdr.
 ``models``    end-to-end flagship pipelines (the reference's
               ``examples/``): BPSK/QPSK tx, FM receiver, 64-channel
-              channelizer, multi-chip wideband chain.
+              channelizer, multi-device wideband chain.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Socket transport for sample blocks: the ZMQ path, TPU-framework style.
+"""Socket transport for sample blocks: the ZMQ path.
 
 Functional parity with ``/root/reference/src/io/zmq_node.rs:9-141``
 (``ZMQSend``/``ZMQRecv``): typed sample blocks serialized and moved
@@ -19,8 +19,8 @@ subscribes-all, matching zmq_node.rs:47-49,115-118); otherwise a
 plain-TCP fallback with identical framing provides PUSH/PULL
 semantics so the transport works in this hermetic environment.
 
-Role in the TPU design (SURVEY.md section 2.4): intra-pod movement is
-ICI collectives; this transport is for host-boundary egress — feeding
+Role in the design (SURVEY.md section 2.4): movement between devices
+is XLA collectives; this transport is for host-boundary egress — feeding
 visualization, recording, or non-JAX consumers from host 0.
 """
 

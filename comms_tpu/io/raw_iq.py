@@ -4,7 +4,7 @@ Format parity with ``/root/reference/src/io/raw_iq.rs:1-5`` (so files
 written by either framework diff directly): a stream of
 ``Complex<i16>`` stored as re, im int16 pairs in host byte order.
 
-Host-side numpy (IO never belongs on the TPU); block iteration feeds
+Host-side numpy (IO never belongs on the device); block iteration feeds
 the jitted pipeline.  EOF handling is explicit (the reference sleeps
 forever then panics, raw_iq.rs:56-70 — deliberately not reproduced):
 the final ragged block is either dropped, zero-padded, or yielded

@@ -1,3 +1,2 @@
-"""Pallas TPU kernels for the hot ops."""
-
-from comms_tpu.kernels.fir_pallas import fir_block_pallas  # noqa: F401
+"""Hand-written device kernels: the fused FM chain for NVIDIA GPUs
+(Pallas through Triton)."""

@@ -1,436 +1,265 @@
-"""Fused Pallas TPU kernel: the whole FM receive chain in one pass.
+"""The whole FM receive chain in one Pallas kernel for NVIDIA GPUs
+(Pallas through Triton).
 
-    planar u8 IQ -> convert -> 63-tap FIR /5 -> quadrature demod
-                 -> 63-tap FIR /5 -> f32 audio
+    u8 IQ -> (x - 127.5) -> 63-tap FIR /5 -> quadrature demod
+          -> 63-tap FIR /5 -> f32 audio
 
-Functionally identical to ``models/fm_receiver.make_block_fn``'s
-polyphase path (the reference chain, fm_radio.rs:144-168), but HBM
-traffic collapses to the floor: the raw u8 planes are read ONCE, all
-intermediates (offset-binary removal, mid stream, demodulated stream)
-live in VMEM, and only the 25x-decimated audio is written back —
-~2.2 B per input sample versus the ~4 B/sample of the fused-by-XLA
-chain.
+Functionally the polyphase path of ``models/fm_receiver.make_block_fn``
+(the reference chain, fm_radio.rs:144-168).  The XLA chain writes and
+re-reads the f32 complex input, the mid-rate stream and the demodulated
+stream between its stages; here the interleaved u8 bytes are read once
+and only the audio (1/25 of the input rate) is written.
 
-Design notes (every choice tracks a measured Mosaic constraint,
-docs/PERF.md):
+Design:
 
-* **Planar input.**  Two u8 planes [N] (re, im), viewed [rows, 640].
-  640 lanes make the decimate-by-5 GEMM's window advance exactly ONE
-  sublane per 128 outputs, so the two window pieces are stride-1 row
-  slices — Mosaic cannot stride or re-concatenate sublanes, but plain
-  shifted slices + split matmuls it handles (the fir_pallas trick).
-  Interleaved input would double the band width (2x the MXU work);
-  ingest produces planar instead (one cheap host-side transform).
-* **int8 MXU stage 1.**  The u8 bytes never touch the VPU's slow
-  byte-unpack path: the staging buffer is read through an int32
-  ref-bitcast (native 32-bit loads of 4 packed rows per word), offset
-  binary is removed with one packed ``xor 0x80808080`` (x ^ 0x80 ==
-  x - 128 in two's complement), and a value bitcast back to int8
-  feeds the banded GEMMs DIRECTLY as s8 MXU operands — v5e runs s8
-  matmuls at 2x the bf16 rate, and the accumulate is EXACT in int32.
-  Taps are quantized to ~23 bits (scale (2^23-2^16)/max|h|, per-tap
-  error <= 0.5/S ~ 6e-8 absolute — ~30x tighter than the former
-  split-bf16 path) and split into three signed bytes
-  h*S = a*65536 + b*256 + c, so each stage-1 GEMM is three s8
-  passes (1.5 bf16-pass equivalents — still 25% less MXU work than
-  the split-bf16 pair, with no u8 unpack).  The (x-127.5)/127.5 conversion folds into
-  the scalar epilogue.  Measured: the former u8->int32->f32 astype
-  ran at ~24 GB/s and dominated the kernel; this formulation removes
-  it entirely.
-* **Aligned DMAs, misaligned compute slices.**  DMA row offsets and
-  extents are kept at tile multiples (32 rows for u8/i8, 8 for f32);
-  the odd offsets live only in compute-side slices, which Mosaic
-  lowers to in-register shifts.  Halo zones (last 32 input rows /
-  8 demod rows) are carried across grid steps with aligned
-  VMEM-to-VMEM copies, so no input byte is ever re-read from HBM.
-* **Exact stream context.**  Block context enters in the RAW f32
-  domain.  Mid-stream tails are integer u8 values (exactly
-  representable in i8 after the -128 shift); the stream-start value
-  127.5 (converted-domain zero) is not, so the wrapper rounds the
-  context to i8 and sends the rounding residual's stage-1 projection
-  as a 128-lane correction added to the first mid row of grid step 0
-  (the only outputs any context residual can reach: output row r
-  reads slab rows r+31 and r+32, and only slab row 31's last 128
-  lanes lie in the context region).  The fused stream therefore
-  matches the XLA chain's zero-context start exactly.
-* **Demod lag via rolls.**  lag[i] = mid[i-1] on a [R, 128] tile is
-  lane-roll + sublane-roll + lane-0 select; the seam element comes
-  from an SMEM carry (previous grid step / block context).
-* **Stage-2 relayout by stores.**  The demodulated tile is stored
-  row-by-row into a persistent [40, 640] VMEM scratch ([1,128] stores
-  at lane-tile-aligned offsets), giving stage 2 the same 640-lane
-  banded-GEMM shape.  Stage 2 keeps f32 HIGHEST-precision dots: its
-  data operand (the demod stream) is not integer, and it is 1/25 of
-  the work.
+* **Independent programs.**  Program ``p`` produces audio
+  ``[p*BA, (p+1)*BA)``.  It recomputes its own halo from the raw
+  bytes: 64 demod values before its first output, which need
+  ``25*BA + 387`` input samples in all.  Nothing is carried between
+  programs, so they run in any order on any SM.
+* **Interleaved input.**  The u8 ``[N, 2]`` capture is viewed as u16
+  words (re in the low byte), so one load feeds both planes; the
+  bytes become floats by exponent-field arithmetic (:func:`_centered`).
+* **Stage 1 on the tensor cores.**  Window rows of 256 inputs (160
+  apart) times a banded tap matrix give 32 mids per row, plus a
+  second band for each mid's lag, so the demod needs no shift of a
+  register tensor (which Triton cannot express).  The window values
+  ``raw - 127.5`` are exact in fp16, and the f32 taps ride as an fp16
+  hi/lo pair (~2^-22 relative), accumulated in f32.  The conversion's
+  ``/127.5`` is dropped: the demod's angle does not depend on scale.
+* **Stage 2 on the CUDA cores** in f32 with the taps as constants: it
+  reads the demod stream at stride 5, so each program writes its demod
+  row to its own row of a scratch output, crosses a block barrier, and
+  gathers it back.
+* **Stream context** is the previous block's last ``CTX`` input
+  samples as centred floats (``raw - 127.5``), so the stream start
+  (all zero) is exact; program 0 alone reads it.
 
-Carried state between BLOCKS is recomputed by the wrapper from the
-raw input tail with the existing XLA ops (cheap: ~3.3k samples), so
-the kernel needs only tiny context inputs and no state outputs.
-
-Serving note: dispatch quanta should be LARGE (millions of samples —
-the kernel carries its halo state across grid steps in VMEM, so one
-dispatch streams any multiple of ``IN_PER_STEP``).  Feeding it
-102,400-sample blocks sliced out of a bigger device array by
-``lax.scan`` costs 2.1 us per block in XLA operand-materialization
-copies alone (measured; u8 copies run ~100 GB/s) — 38% of the
-kernel's runtime at that block size.
+Tiles (``BA``, ``_CHUNK``, ``_WARPS``) are the fastest measured on an
+H100 (PERF.md).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["fm_chain_fused", "quantize_taps", "zero_ctx", "IN_PER_STEP"]
+from comms_tpu.ops import demodulation
 
-_LANES = 128
-_ROWW = 640                      # lane width: stride-5 x 128 outputs
-_ROWS = 160                      # input rows per step (32-aligned for u8)
-_XHALO = 32                      # input halo zone rows (u8 tile height)
-_DHALO = 8                       # demod halo zone rows (f32 tile height)
-IN_PER_STEP = _ROWS * _ROWW      # 102,400 input samples
-_MROWS = _ROWS  # each 640-wide input row yields one 128-wide mid row
-_AROWS = IN_PER_STEP // (25 * _LANES)   # audio rows per step = 32
-_XOR80 = np.int32(np.uint32(0x80808080))   # x ^ 0x80 == x - 128 (s8)
+__all__ = ["fm_chain_fused", "centered_ctx", "zero_ctx", "BLOCK_QUANTUM",
+           "CTX"]
 
-
-def _band(taps: np.ndarray, dec: int) -> np.ndarray:
-    """B[w, j] = taps[128 + dec*j - w] over the [768, 128] window
-    (window starts 128 values before the output row's first input)."""
-    T = taps.shape[0]
-    w = np.arange(_LANES + _ROWW)[:, None]
-    j = np.arange(_LANES)[None, :]
-    t = _LANES + dec * j - w
-    valid = (t >= 0) & (t < T)
-    return np.where(valid, taps[np.clip(t, 0, T - 1)], 0.0)
+BA = 256                       # audio outputs per program
+BLOCK_QUANTUM = 25 * BA        # input samples per program
+CTX = 512                      # carried input samples (>= 5*_DHALO + 67)
+_DHALO = 64                    # demod values before a program's first output
+_NT = 63
+_MC = 32                       # mids per window row (stage-1 dot columns)
+_WIN = 256                     # window row width: 5*_MC + 67 <= _WIN
+_WOFF = 72                     # window start before a row's first mid input
+_SCALE = 4096.0                # tap scale for the fp16 hi/lo split
+_CHUNK = 16                    # window rows per stage-1 dot
+_WARPS = 4
 
 
-def quantize_taps(taps: np.ndarray):
-    """Host-side tap quantization for the s8 MXU stage: q = round(h*S)
-    with S = (2^23 - 2^16)/max|h|, split into THREE signed bytes
-    q = a*65536 + b*256 + c (each s8, exact) as band matrices
-    (B_a, B_b, B_c) s8 [768, 128].  Returns (B_a, B_b, B_c, S).
-
-    Per-tap error <= 0.5/S (~6e-8 absolute for the FM LPF) — ~30x
-    tighter than the split-bf16 scheme this replaced (a 2-byte s16
-    split was tried first: its ~3e-6/tap error produced occasional
-    atan2 branch-cut flips vs the XLA chain on white-noise input;
-    3 bytes restores flip-free hardware parity at 3 s8 MXU passes =
-    1.5 bf16-pass equivalents, still 25% less MXU work than the
-    split-bf16 pair)."""
-    t = np.asarray(taps, np.float64)
-    S = float(2 ** 23 - 2 ** 16) / max(np.abs(t).max(), 1e-300)
-    q = np.round(t * S).astype(np.int64)
-    B = _band(q.astype(np.float64), 5).astype(np.int64)
-    c = ((B + 128) % 256 - 128).astype(np.int64)
-    q1 = (B - c) >> 8
-    b = ((q1 + 128) % 256 - 128).astype(np.int64)
-    a = (q1 - b) >> 8
-    assert np.array_equal(a * 65536 + b * 256 + c, B)
-    assert a.min() >= -128 and a.max() <= 127
-    return (a.astype(np.int8), b.astype(np.int8), c.astype(np.int8), S)
+def _centered(w):
+    """u16 words (re | im << 8) -> (re - 127.5, im - 127.5) in f32,
+    exactly.  A byte ``b`` placed at mantissa bits 15..22 under the
+    exponent of 128.0 reads as ``128 + b/2``; one multiply-add then
+    gives ``b - 127.5``."""
+    w = w.astype(jnp.int32)
+    one28 = jnp.int32(0x43000000)
+    field = jnp.int32(0x7F8000)
+    re = jax.lax.bitcast_convert_type(((w << 15) & field) | one28,
+                                      jnp.float32)
+    im = jax.lax.bitcast_convert_type(((w << 7) & field) | one28,
+                                      jnp.float32)
+    return re * 2.0 - 383.5, im * 2.0 - 383.5
 
 
-def _dot(a, b, precision=None):
-    return jnp.dot(a, b, preferred_element_type=jnp.float32,
-                   precision=precision)
+def _band(taps, off):
+    """Stage-1 band ``B[w, c] = taps[off + 5c - w]`` over a
+    ``_WIN``-sample window and ``_MC`` mid columns (0 outside)."""
+    w = np.arange(_WIN)[:, None]
+    c = np.arange(_MC)[None, :]
+    t = off + 5 * c - w
+    ok = (t >= 0) & (t < _NT)
+    return np.where(ok, np.asarray(taps, np.float64)[np.clip(t, 0, _NT - 1)],
+                    0.0)
 
 
-def _stage1_gemm_s8(slab, ba, bb, bc, ca, cb, cc):
-    """Banded decimating GEMM on the s8 slab [192, 640]: two window
-    pieces x three byte-split passes.  Each per-byte i32 accumulator
-    is <= 128*128*63 < 2^24, so its f32 conversion is EXACT; the
-    byte weights (256^k * scale) fold into the f32 epilogue constants
-    ``ca, cb, cc``, keeping total rounding ~1e-7 of mid scale.
-    Returns [160, 128] f32 = sum_t h[t] * (x[.]-128) / 127.5 + O(1e-6)."""
-    h0 = _XHALO - 1
-    w0 = slab[h0:h0 + _MROWS, 512:640]         # [160, 128] s8
-    w1 = slab[h0 + 1:h0 + 1 + _MROWS, :]       # [160, 640] s8
-    i32 = jnp.int32
-
-    def pair(bmat):
-        return (jnp.dot(w0, bmat[:128], preferred_element_type=i32)
-                + jnp.dot(w1, bmat[128:], preferred_element_type=i32))
-
-    return (pair(ba).astype(jnp.float32) * ca
-            + pair(bb).astype(jnp.float32) * cb
-            + pair(bc).astype(jnp.float32) * cc)
+def _split_f16(band):
+    """Scaled band as an fp16 (hi, lo) pair: hi + lo == band * 2^12 to
+    ~2^-22 relative.  The 2^12 scale keeps the smallest taps' residuals
+    out of fp16's subnormal range."""
+    scaled = band * _SCALE
+    hi = scaled.astype(np.float16)
+    lo = (scaled - hi.astype(np.float64)).astype(np.float16)
+    return hi, lo
 
 
-def _stage2_gemm(slab, bh):
-    """Audio decimating GEMM on the f32 demod scratch [40, 640] at
-    HIGHEST precision (arbitrary-f32 data; 1/25 of the work)."""
-    h0 = _DHALO - 1
-    w0 = slab[h0:h0 + _AROWS, 512:640]
-    w1 = slab[h0 + 1:h0 + 1 + _AROWS, :]
-    hp = jax.lax.Precision.HIGHEST
-    return _dot(w0, bh[:128], hp) + _dot(w1, bh[128:], hp)
+def _window(x_ref, cre_ref, cim_ref, x0, n, rows, first):
+    """``[rows, _WIN]`` fp16 window tiles (re, im) of ``raw - 127.5``:
+    row ``r`` holds inputs ``x0 + 160 r + w``.  The values are
+    half-integers, exact in fp16.  ``first`` (program 0's first rows
+    only) takes indices < 0 from the carried context."""
+    r = jax.lax.broadcasted_iota(jnp.int32, (rows, _WIN), 0)
+    w = jax.lax.broadcasted_iota(jnp.int32, (rows, _WIN), 1)
+    idx = x0 + 5 * _MC * r + w
+    inside = (idx >= 0) & (idx < n)
+    vre, vim = _centered(plgpu.load(x_ref.at[jnp.where(inside, idx, 0)],
+                                    mask=inside, other=0))
+    if first:
+        before = idx < 0
+        cidx = jnp.where(before, idx + CTX, 0)
+        vre = jnp.where(before, plgpu.load(cre_ref.at[cidx], mask=before,
+                                           other=0.0), vre)
+        vim = jnp.where(before, plgpu.load(cim_ref.at[cidx], mask=before,
+                                           other=0.0), vim)
+    return vre.astype(jnp.float16), vim.astype(jnp.float16)
 
 
-def _atan2(y, x):
-    """Mosaic has no atan2 primitive; octant-reduced odd polynomial
-    (degree 15 on [0,1], fitted to 8.8e-8 rad max error — well inside
-    the chain's 1e-3 parity budget)."""
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    swap = ay > ax
-    num = jnp.minimum(ax, ay)
-    den = jnp.maximum(ax, ay)
-    r = num / (den + jnp.float32(1e-30))
-    r2 = r * r
-    p = jnp.float32(-4.831168387e-03)
-    p = p * r2 + jnp.float32(2.475678069e-02)
-    p = p * r2 + jnp.float32(-6.021912799e-02)
-    p = p * r2 + jnp.float32(9.967923619e-02)
-    p = p * r2 + jnp.float32(-1.404013889e-01)
-    p = p * r2 + jnp.float32(1.997368136e-01)
-    p = p * r2 + jnp.float32(-3.333230283e-01)
-    p = p * r2 + jnp.float32(9.999999582e-01)
-    a = p * r
-    a = jnp.where(swap, jnp.float32(np.pi / 2) - a, a)
-    # IEEE signed-zero faithful (atan2(+-0, -0) = +-pi, like the
-    # reference's f32::atan2): the sign BIT distinguishes -0.0.  The
-    # earlier (1/v) < 0 probe cost two extra VPU divisions per sample
-    # — the whole chain measured 70.7 -> 75.7 Gsps from this swap
-    # (divisions, not the degree-15 polynomial, were atan2's cost:
-    # a degree-7 variant bought only +1%).
-    neg_x = jax.lax.bitcast_convert_type(x, jnp.int32) < 0
-    neg_y = jax.lax.bitcast_convert_type(y, jnp.int32) < 0
-    a = jnp.where(neg_x, jnp.float32(np.pi) - a, a)
-    return jnp.where(neg_y, -a, a)
+def _demod_rows(window, bands):
+    """Demod values ``[rows, _MC]`` from window tiles: stage 1 (mid and
+    its lag) as fp16 tensor-core dots with the taps as an fp16 hi/lo
+    pair, then the quadrature demod."""
+    are, aim = window
+
+    def fir(a, hi, lo):
+        return (jax.lax.dot(a, hi[...], preferred_element_type=jnp.float32)
+                + jax.lax.dot(a, lo[...],
+                              preferred_element_type=jnp.float32))
+
+    bmh, bml, blh, bll = bands
+    mre, mim = fir(are, bmh, bml), fir(aim, bmh, bml)
+    lre, lim = fir(are, blh, bll), fir(aim, blh, bll)
+    # d = arg(mid * conj(lag)), the same products and signed zeros as
+    # demodulation.fm_demod_block (the common 2^12 * 127.5 scale of
+    # mid and lag does not change the angle).
+    zre = mre * lre + mim * lim
+    zim = mim * lre - mre * lim
+    return demodulation.fast_atan2(zim, zre)
 
 
-def _lag1(x, seam):
-    """lag[i] = flat(x)[i-1] for a [R, 128] tile; element [0, 0]
-    takes ``seam`` (the previous tile's last sample)."""
-    lanes = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    rows = jax.lax.broadcasted_iota(jnp.int32, x.shape, 0)
-    a = pltpu.roll(x, 1, 1)            # [r, l-1 mod 128]
-    b = pltpu.roll(a, 1, 0)            # [r-1, l-1 mod 128]
-    lag = jnp.where(lanes == 0, b, a)  # [r, 0] <- x[r-1, 127]
-    return jnp.where((lanes == 0) & (rows == 0), seam, lag)
+def _rows():
+    """Window rows each program computes: enough for its
+    ``5*BA + _DHALO`` demod values, rounded up to whole chunks."""
+    rows = -(-(5 * BA + _DHALO) // _MC)
+    return -(-rows // _CHUNK) * _CHUNK
+
+
+def _kernel(x_ref, cre_ref, cim_ref, bmh, bml, blh, bll, audio_ref, d_ref,
+            *, h2, n, barrier):
+    p = pl.program_id(0)
+    ba, chunk = BA, _CHUNK
+    bands = (bmh, bml, blh, bll)
+    # window of mid row 0: mid m0 = 5*p*ba - _DHALO needs inputs from
+    # 5*m0 - 67; _WOFF (>= 67, 8-aligned) leaves the window's start
+    # 16-byte aligned.
+    x0 = p * (25 * ba) - 5 * _DHALO - _WOFF
+    r = jax.lax.broadcasted_iota(jnp.int32, (chunk, _MC), 0)
+    c = jax.lax.broadcasted_iota(jnp.int32, (chunk, _MC), 1)
+    for j in range(_rows() // chunk):
+        xj = x0 + j * chunk * 5 * _MC
+
+        def rows(first, xj=xj):
+            return _demod_rows(
+                _window(x_ref, cre_ref, cim_ref, xj, n, chunk, first), bands)
+
+        if j == 0:     # only program 0's first rows reach before the block
+            d = jax.lax.cond(p == 0, lambda: rows(True), lambda: rows(False))
+        else:
+            d = rows(False)
+        d_ref[(j * chunk + r) * _MC + c] = d
+
+    if barrier:   # the interpreter runs a program as one thread
+        plgpu.debug_barrier()
+
+    # stage 2: audio[k] = sum_t h2[t] d[5k - t]; slot of d[5k] is
+    # 5a + _DHALO for a = k - p*ba.  Unrolled, so the 63 gathers are
+    # independent and their latencies overlap.
+    di = _DHALO + 5 * jax.lax.iota(jnp.int32, ba)
+    acc = jnp.zeros((ba,), jnp.float32)
+    for t in range(_NT):
+        acc = acc + h2[t] * d_ref[di - t]
+    audio_ref[...] = acc
+
+
+def centered_ctx(iq_u8_tail):
+    """Carried context from the last ``CTX`` raw ``[CTX, 2]`` u8
+    samples: ``raw - 127.5`` as f32 planes ``[2, CTX]``."""
+    return iq_u8_tail.astype(jnp.float32).T - 127.5
 
 
 def zero_ctx():
-    """Stream-start context: raw-domain 127.5 == converted-domain 0,
-    so the first block matches the XLA chain's zero context exactly
-    (via the wrapper's rounding-residual correction row)."""
-    return {
-        "xre": np.full(_XHALO * _ROWW, 127.5, np.float32),
-        "xim": np.full(_XHALO * _ROWW, 127.5, np.float32),
-        "d": np.zeros(_DHALO * _ROWW, np.float32),
-        "prev": np.zeros(2, np.float32),
-    }
+    """Stream-start context: converted-domain zero."""
+    return jnp.zeros((2, CTX), jnp.float32)
 
 
-def _kernel(re_hbm, im_hbm, ctx_re, ctx_im, dctx, corr, prev_mid,
-            b1a, b1b, b1c, b2h, consts,
-            audio_out,
-            stage_re, stage_im, slab_re, slab_im, d640, carry, sem):
-    g = pl.program_id(0)
-    n = pl.num_programs(0)
-    slot = jax.lax.rem(g, jnp.int32(2))
+@functools.lru_cache(maxsize=None)
+def _build(n: int, h1: tuple, h2: tuple, interpret: bool):
+    """The jitted ``(words[n] u16, ctx[2, CTX]) -> audio[n/25]`` call
+    for one block length and tap pair."""
+    steps = n // BLOCK_QUANTUM
+    lpad = 1 << (_rows() * _MC - 1).bit_length()
+    bmh, bml = _split_f16(_band(h1, _WOFF))
+    blh, bll = _split_f16(_band(h1, _WOFF - 5))
+    bands = (bmh, bml, blh, bll)        # host constants of the program
+    kernel = functools.partial(_kernel, h2=h2, n=n, barrier=not interpret)
+    call = pl.pallas_call(
+        kernel,
+        grid=(steps,),
+        in_specs=[pl.BlockSpec()] * 7,
+        out_specs=[pl.BlockSpec((BA,), lambda p: (p,)),
+                   pl.BlockSpec((None, lpad), lambda p: (p, 0))],
+        out_shape=[jax.ShapeDtypeStruct((n // 25,), jnp.float32),
+                   jax.ShapeDtypeStruct((steps, lpad), jnp.float32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="fm_chain",
+    )
 
-    # ---- carry the input/demod halo zones forward (VMEM copies,
-    # tile-aligned).
-    @pl.when(g > 0)
-    def _():
-        slab_re[0:_XHALO, :] = slab_re[_ROWS:_ROWS + _XHALO, :]
-        slab_im[0:_XHALO, :] = slab_im[_ROWS:_ROWS + _XHALO, :]
-        d640[0:_DHALO, :] = d640[_AROWS:_AROWS + _DHALO, :]
+    @jax.jit
+    def run(words, ctx):
+        return call(words, ctx[0], ctx[1], *map(jnp.asarray, bands))[0]
 
-    # ---- double-buffered input staging: step g's planes were
-    # prefetched during step g-1 (slot g%2); step g+1's DMA is issued
-    # as soon as this step's is drained, so it overlaps ALL of this
-    # step's compute.  (The serial start-then-wait form this replaced
-    # left the DMA engine idle during compute; the u8 ingest is small
-    # enough that this measured only ~+1.5% at 26M-sample dispatches,
-    # but it removes the per-step DMA latency from the critical path.)
-    def issue(j, s, op):
-        getattr(pltpu.make_async_copy(
-            re_hbm.at[pl.ds(j * _ROWS, _ROWS), :],
-            stage_re.at[s], sem.at[s, 0]), op)()
-        getattr(pltpu.make_async_copy(
-            im_hbm.at[pl.ds(j * _ROWS, _ROWS), :],
-            stage_im.at[s], sem.at[s, 1]), op)()
-
-    @pl.when(g == 0)
-    def _():
-        issue(0, 0, "start")
-        # block context enters pre-rounded to s8 (offset binary
-        # removed by the wrapper); the rounding residual arrives via
-        # ``corr`` (see module docstring).
-        c0 = pltpu.make_async_copy(ctx_re.at[pl.ds(0, _XHALO), :],
-                                   slab_re.at[pl.ds(0, _XHALO), :],
-                                   sem.at[2, 0])
-        c1 = pltpu.make_async_copy(ctx_im.at[pl.ds(0, _XHALO), :],
-                                   slab_im.at[pl.ds(0, _XHALO), :],
-                                   sem.at[2, 1])
-        c0.start()
-        c1.start()
-        c0.wait()
-        c1.wait()
-        c2 = pltpu.make_async_copy(dctx.at[pl.ds(0, _DHALO), :],
-                                   d640.at[pl.ds(0, _DHALO), :],
-                                   sem.at[2, 0])
-        c2.start()
-        c2.wait()
-        carry[0] = prev_mid[0]
-        carry[1] = prev_mid[1]
-
-    issue(g, slot, "wait")
-
-    @pl.when(g + 1 < n)
-    def _():
-        issue(g + 1, 1 - slot, "start")
-
-    # Offset-binary removal on packed words (x ^ 0x80 == x - 128),
-    # then a value bitcast hands the bytes to the MXU as s8 — no
-    # byte-unpack ever runs on the VPU.
-    xor = jnp.int32(_XOR80)
-    slab_re[_XHALO:, :] = pltpu.bitcast(
-        stage_re.bitcast(jnp.int32)[slot] ^ xor, jnp.int8)
-    slab_im[_XHALO:, :] = pltpu.bitcast(
-        stage_im.bitcast(jnp.int32)[slot] ^ xor, jnp.int8)
-
-    dc1 = consts[0]     # -0.5 * sum(q) / (S * 127.5)
-    ca = consts[1]      # 65536 / (S * 127.5)
-    cb = consts[2]      # 256 / (S * 127.5)
-    cc = consts[3]      # 1 / (S * 127.5)
-
-    # ---- stage 1: two real decimating FIRs as s8 banded GEMMs.
-    mid_re = _stage1_gemm_s8(slab_re[:], b1a, b1b, b1c, ca, cb, cc) - dc1
-    mid_im = _stage1_gemm_s8(slab_im[:], b1a, b1b, b1c, ca, cb, cc) - dc1
-
-    # context rounding-residual correction: first mid row of step 0.
-    rows = jax.lax.broadcasted_iota(jnp.int32, mid_re.shape, 0)
-    first = (rows == 0) & (g == 0)
-    mid_re = mid_re + jnp.where(
-        first, jnp.broadcast_to(corr[0:1, :], mid_re.shape), 0.0)
-    mid_im = mid_im + jnp.where(
-        first, jnp.broadcast_to(corr[1:2, :], mid_im.shape), 0.0)
-
-    # ---- quadrature demod: d = atan2(im(z), re(z)), z = mid*conj(lag)
-    lag_re = _lag1(mid_re, carry[0])
-    lag_im = _lag1(mid_im, carry[1])
-    zre = mid_re * lag_re + mid_im * lag_im
-    zim = mid_im * lag_re - mid_re * lag_im
-    d = _atan2(zim, zre)
-    carry[0] = mid_re[_MROWS - 1, _LANES - 1]
-    carry[1] = mid_im[_MROWS - 1, _LANES - 1]
-
-    # ---- relayout d [160, 128] -> d640 data zone as [32, 640]
-    for r2 in range(_AROWS):
-        for c in range(5):
-            d640[_DHALO + r2, 128 * c:128 * (c + 1)] = d[5 * r2 + c, :]
-
-    # ---- stage 2: audio decimating FIR on the d scratch (full
-    # precision: the demod stream is not integer; 1/25 the work).
-    audio_out[:] = _stage2_gemm(d640[:], b2h)
+    return run
 
 
-def fm_chain_fused(re_u8, im_u8, ctx, taps1, taps2, interpret: bool = False):
-    """Run the fused chain over planar u8 planes.
+def _taps63(taps):
+    h = tuple(float(v) for v in np.asarray(taps, np.float32))
+    if len(h) != _NT:
+        raise ValueError(f"fused chain is specialized to {_NT}-tap filters")
+    return h
+
+
+def fm_chain_fused(iq_u8, ctx, taps1, taps2, interpret: bool = False):
+    """Run the fused chain over one block.
 
     Args:
-      re_u8, im_u8: [N] uint8 planar IQ planes, N % 102400 == 0.
-      ctx: dict with 'xre', 'xim' ([32*640] f32 input tails in the RAW
-        domain, i.e. u8 value scale — use 127.5 (converted-domain zero)
-        at stream start), 'd' ([8*640] f32 demod tail) and 'prev'
-        ([2] f32 last mid sample); the streaming wrapper recomputes
-        them per block from the raw tail.  See ``zero_ctx``.
-      taps1/taps2: the two 63-tap f64 LPFs.
+      iq_u8: ``[N, 2]`` uint8 interleaved IQ, ``N % BLOCK_QUANTUM == 0``.
+      ctx: ``[2, CTX]`` f32 centred input tail preceding the block
+        (:func:`centered_ctx`, or :func:`zero_ctx` at stream start).
+      taps1, taps2: the two 63-tap low-pass filters (host arrays).
+      interpret: run the Pallas interpreter (CPU tests).
 
-    Returns audio[N/25] f32.
+    Returns audio ``[N/25]`` f32.
     """
-    re_u8 = jnp.asarray(re_u8)
-    im_u8 = jnp.asarray(im_u8)
-    N = re_u8.shape[0]
-    if N % IN_PER_STEP:
-        raise ValueError(f"N {N} must be a multiple of {IN_PER_STEP}")
-    steps = N // IN_PER_STEP
-
-    b1a, b1b, b1c, S = quantize_taps(taps1)
-    # stage 2 runs unsplit at HIGHEST precision: full f32 band.
-    b2h = _band(np.asarray(taps2, np.float64), 5).astype(np.float32)
-    t1 = np.asarray(taps1, np.float64)
-    q_sum = float(np.sum(np.round(t1 * S)))
-    sc = 1.0 / (S * 127.5)
-    consts = jnp.asarray(
-        [-0.5 * q_sum * sc, 65536.0 * sc, 256.0 * sc, sc], jnp.float32)
-
-    # context: round to s8 (offset binary removed); project the
-    # rounding residual through stage 1's band for the one output row
-    # it can reach (mid row 0 of grid step 0, via slab row 31's last
-    # 128 lanes — the only context positions any window reads).
-    xre = jnp.asarray(ctx["xre"]).reshape(_XHALO, _ROWW)
-    xim = jnp.asarray(ctx["xim"]).reshape(_XHALO, _ROWW)
-    xre_q = jnp.round(xre - 128.0)
-    xim_q = jnp.round(xim - 128.0)
-    B1f = jnp.asarray(
-        (_band(np.round(t1 * S), 5)[:128] / (S * 127.5)).astype(np.float32))
-    res_re = (xre - 128.0 - xre_q)[_XHALO - 1, 512:640]
-    res_im = (xim - 128.0 - xim_q)[_XHALO - 1, 512:640]
-    corr = jnp.stack([
-        jnp.dot(res_re, B1f, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST),
-        jnp.dot(res_im, B1f, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST),
-    ])                                            # [2, 128]
-
-    out = pl.pallas_call(
-        _kernel,
-        grid=(steps,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),      # re plane (HBM)
-            pl.BlockSpec(memory_space=pl.ANY),      # im plane
-            pl.BlockSpec(memory_space=pl.ANY),      # x ctx re rows (s8)
-            pl.BlockSpec(memory_space=pl.ANY),      # x ctx im rows (s8)
-            pl.BlockSpec(memory_space=pl.ANY),      # d ctx rows
-            pl.BlockSpec((2, _LANES), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),  # residual corr
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # prev mid [2]
-            pl.BlockSpec((_LANES + _ROWW, _LANES), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),  # b1 byte a (s8)
-            pl.BlockSpec((_LANES + _ROWW, _LANES), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),  # b1 byte b (s8)
-            pl.BlockSpec((_LANES + _ROWW, _LANES), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),  # b1 byte c (s8)
-            pl.BlockSpec((_LANES + _ROWW, _LANES), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),  # b2 (f32)
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # consts [4]
-        ],
-        out_specs=pl.BlockSpec((_AROWS, _LANES), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((steps * _AROWS, _LANES),
-                                       jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((2, _ROWS, _ROWW), jnp.uint8),   # staging x2 slots
-            pltpu.VMEM((2, _ROWS, _ROWW), jnp.uint8),
-            pltpu.VMEM((_ROWS + _XHALO, _ROWW), jnp.int8),
-            pltpu.VMEM((_ROWS + _XHALO, _ROWW), jnp.int8),
-            pltpu.VMEM((_AROWS + _DHALO, _ROWW), jnp.float32),
-            pltpu.SMEM((2,), jnp.float32),
-            pltpu.SemaphoreType.DMA((3, 2)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * 2 * 2 * steps * _MROWS * _LANES * (_LANES + _ROWW),
-            bytes_accessed=2 * N + 4 * (N // 25),
-            transcendentals=N // 5,
-        ),
-        interpret=interpret,
-    )(
-        re_u8.reshape(-1, _ROWW), im_u8.reshape(-1, _ROWW),
-        xre_q.astype(jnp.int8), xim_q.astype(jnp.int8),
-        jnp.asarray(ctx["d"]).reshape(_DHALO, _ROWW),
-        corr,
-        jnp.asarray(ctx["prev"]).reshape(2),
-        jnp.asarray(b1a), jnp.asarray(b1b), jnp.asarray(b1c),
-        jnp.asarray(b2h, jnp.float32),
-        consts,
-    )
-    return out.reshape(-1)
+    N = iq_u8.shape[0]
+    if iq_u8.shape != (N, 2) or iq_u8.dtype != jnp.uint8:
+        raise ValueError(f"need [N, 2] uint8 IQ, got {iq_u8.shape} "
+                         f"{iq_u8.dtype}")
+    if N == 0 or N % BLOCK_QUANTUM:
+        raise ValueError(
+            f"block {N} must be a positive multiple of {BLOCK_QUANTUM}")
+    run = _build(N, _taps63(taps1), _taps63(taps2), bool(interpret))
+    words = jax.lax.bitcast_convert_type(iq_u8, jnp.uint16)   # [N]
+    return run(words, ctx)

@@ -1,5 +1,5 @@
 """End-to-end flagship pipelines — the reference's ``examples/`` as
-jitted TPU programs (SURVEY.md section 1, L4)."""
+jitted programs (SURVEY.md section 1, L4)."""
 
 from comms_tpu.models import (  # noqa: F401
     bpsk_tx,

@@ -19,22 +19,6 @@ __all__ = ["ChannelizerConfig", "make_block_fn", "make_planar_block_fn",
            "init_state"]
 
 
-def _auto_use_pallas(cfg: "ChannelizerConfig") -> bool:
-    """Production default: the fused Pallas kernel measures ~4x the
-    round-4 banded-GEMM XLA path (23.3 vs 6.0 Gsps, slope-measured,
-    docs/bench_real_r4.json), so on TPU it is the default whenever the
-    kernel's constraints hold; anywhere else (CPU tests, unsupported
-    shapes) fall back to XLA."""
-    if jax.devices()[0].platform != "tpu":
-        return False
-    from comms_tpu.kernels import channelizer_pallas as _CP
-
-    T = cfg.num_channels * cfg.taps_per_branch
-    return (128 % cfg.num_channels == 0
-            and cfg.block % _CP.step_samples() == 0
-            and T - 1 <= _CP.CTX_SAMPLES)
-
-
 class ChannelizerConfig:
     def __init__(self, num_channels: int = 64, taps_per_branch: int = 8,
                  block: int = 1 << 18, prototype=None):
@@ -59,58 +43,9 @@ def init_state(cfg: ChannelizerConfig):
     return jnp.zeros((T - 1, 2), dtype=jnp.float32)
 
 
-def make_block_fn(cfg: ChannelizerConfig, use_pallas=None,
-                  interpret: bool = False):
-    """jitted ``(state, iq_pairs[N, 2]) -> (y_pairs[frames, K, 2], state)``.
-
-    ``use_pallas`` routes through the fused Pallas kernel
-    (``kernels/channelizer_pallas.py``, ~4x the banded-GEMM XLA path,
-    slope-measured) — requires K | 128, taps_per_branch <= 16,
-    and block % 16384 == 0.  ``None`` (default) auto-selects: the kernel
-    on TPU when those constraints hold, the XLA path otherwise.  The
-    carried state stays the same (T-1 input tail as pairs), so the two
-    paths are interchangeable mid-stream.
-    """
-    if use_pallas is None:
-        use_pallas = _auto_use_pallas(cfg)
+def make_block_fn(cfg: ChannelizerConfig):
+    """jitted ``(state, iq_pairs[N, 2]) -> (y_pairs[frames, K, 2], state)``."""
     Hb = cfg.Hb  # numpy closure (real f32; kept host-side for symmetry)
-
-    if use_pallas:
-        from comms_tpu.kernels import channelizer_pallas as _CP
-
-        if 128 % cfg.num_channels:
-            raise ValueError("pallas channelizer needs K | 128")
-        if cfg.block % _CP.step_samples():
-            raise ValueError(
-                f"pallas channelizer needs block % {_CP.step_samples()}"
-                f" == 0, got {cfg.block}")
-        proto = cfg.prototype
-        T = cfg.num_channels * cfg.taps_per_branch
-        if T - 1 > _CP.CTX_SAMPLES:
-            raise ValueError(
-                f"pallas channelizer carries at most {_CP.CTX_SAMPLES} "
-                f"context samples; prototype length {T} (K="
-                f"{cfg.num_channels} x M={cfg.taps_per_branch}) exceeds "
-                "it — reduce taps_per_branch or use the XLA path")
-
-        @jax.jit
-        def block_p(state, iq_pairs):
-            x = jax.lax.complex(iq_pairs[:, 0], iq_pairs[:, 1])
-            ctx = jax.lax.complex(state[:, 0], state[:, 1])
-            # kernel ctx quantum is CTX_SAMPLES; left-pad the T-1 tail
-            pad = _CP.CTX_SAMPLES - (T - 1)
-            kctx = jnp.concatenate(
-                [jnp.zeros((pad,), x.dtype), ctx])
-            y, _ = _CP.channelize_pallas(
-                x, proto, kctx, num_channels=cfg.num_channels,
-                interpret=interpret)
-            new_ctx = jnp.concatenate([ctx, x])[-(T - 1):]
-            new_state = jnp.stack(
-                [jnp.real(new_ctx), jnp.imag(new_ctx)], axis=-1)
-            yp = jnp.stack([jnp.real(y), jnp.imag(y)], axis=-1)
-            return yp, new_state
-
-        return block_p
 
     @jax.jit
     def block(state, iq_pairs):
@@ -124,54 +59,16 @@ def make_block_fn(cfg: ChannelizerConfig, use_pallas=None,
     return block
 
 
-def make_planar_block_fn(cfg: ChannelizerConfig, use_pallas=None,
-                         interpret: bool = False):
+def make_planar_block_fn(cfg: ChannelizerConfig):
     """Plane-native variant: jitted ``(state, re[N], im[N]) ->
     ((yre[frames, K], yim[frames, K]), state)``.
 
-    Ingest that deinterleaves on the host (the ``run_file`` pattern —
-    recorded IQ is interleaved on disk, planar in HBM) should use this
-    path: the fused Pallas kernel consumes/produces planes natively,
-    so NO relayout traffic exists anywhere in the block.  State stays
-    the (T-1, 2) f32 pairs of :func:`init_state` — interchangeable
-    with :func:`make_block_fn` mid-stream.  ``use_pallas=None``
-    auto-selects like :func:`make_block_fn`.
+    For ingest that deinterleaves on the host (recorded IQ is
+    interleaved on disk, planar on the device).  State stays the
+    (T-1, 2) f32 pairs of :func:`init_state` — interchangeable with
+    :func:`make_block_fn` mid-stream.
     """
-    if use_pallas is None:
-        use_pallas = _auto_use_pallas(cfg)
     Hb = cfg.Hb
-    T = cfg.num_channels * cfg.taps_per_branch
-
-    if use_pallas:
-        from comms_tpu.kernels import channelizer_pallas as _CP
-
-        if 128 % cfg.num_channels:
-            raise ValueError("pallas channelizer needs K | 128")
-        if cfg.block % _CP.step_samples():
-            raise ValueError(
-                f"pallas channelizer needs block % {_CP.step_samples()}"
-                f" == 0, got {cfg.block}")
-        if T - 1 > _CP.CTX_SAMPLES:
-            raise ValueError(
-                f"pallas channelizer carries at most {_CP.CTX_SAMPLES} "
-                f"context samples; prototype length {T} exceeds it")
-        proto = cfg.prototype
-        pad = _CP.CTX_SAMPLES - (T - 1)
-
-        @jax.jit
-        def block_p(state, re, im):
-            zc = jnp.zeros((pad,), jnp.float32)
-            yr, yi, _, _ = _CP.channelize_pallas_planar(
-                re, im, proto,
-                jnp.concatenate([zc, state[:, 0]]),
-                jnp.concatenate([zc, state[:, 1]]),
-                num_channels=cfg.num_channels, interpret=interpret)
-            new_state = jnp.stack(
-                [jnp.concatenate([state[:, 0], re])[-(T - 1):],
-                 jnp.concatenate([state[:, 1], im])[-(T - 1):]], axis=-1)
-            return (yr, yi), new_state
-
-        return block_p
 
     @jax.jit
     def block(state, re, im):

@@ -10,7 +10,7 @@ back into complex with ``host_pairs_to_complex`` — or pass
 (complex64 blocks, serde_cbor packed layout) and interoperate with a
 LIVE comms-rs ZMQRecv/ZMQSend peer.
 
-Intra-pod sample movement is ICI collectives (SURVEY.md section 2.4);
+Sample movement between devices is XLA collectives (SURVEY.md section 2.4);
 this path is host-boundary egress (visualization, recording,
 inter-process hand-off).
 """

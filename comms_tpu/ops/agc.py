@@ -6,7 +6,7 @@ hardware flag, rtlsdr_radio.rs:31-34).  Two forms:
 
 * ``agc_block`` — feedforward block AGC: one gain per block from the
   block's RMS, smoothed across blocks with a one-pole carried state.
-  Fully parallel (two reductions), the right shape for TPU streaming.
+  Fully parallel (two reductions), the right shape for block streaming.
 * ``agc_scan`` — classic per-sample loop AGC (log-domain error,
   ``lax.scan``) for parity with textbook tracking behavior when
   per-sample adaptation matters; keep off the hot path.

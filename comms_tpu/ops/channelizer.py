@@ -12,9 +12,8 @@ computed for ALL K channels at once via the polyphase decomposition:
 branch filters v[m, p] = sum_j h[j*K+p] * x[(m-j)*K - p], then a
 length-K DFT across the branch axis.
 
-TPU formulation (round 4 — the round-3 path ran the branch MACs
-elementwise on [frames, K] arrays, K/128-lane VPU work that held the
-whole XLA path at 1.7 Gsps): BOTH stages are MXU GEMMs —
+Formulation: BOTH stages are GEMMs (branch MACs run elementwise on
+[frames, K] arrays would use K of every 128 lanes) —
 
 * the branch stage is a banded GEMM over the FLATTENED output stream:
   with o = m*K + c,  V_flat[o] = sum_k C[k-1, o mod K] *
@@ -27,8 +26,8 @@ whole XLA path at 1.7 Gsps): BOTH stages are MXU GEMMs —
   in (for K <= 256; larger K falls back to the batched FFT).
 
 The within-row tap reversal is folded into the host-side coefficient
-matrix (device-side flips measured as the dominant temp-memory cost
-on TPU), and the branch reversal c = K-1-p folds into the DFT
+matrix (a device-side flip materializes a copy), and the branch
+reversal c = K-1-p folds into the DFT
 direction plus a constant per-channel phase e^{-2i pi ch / K}:
 
     y[m, ch] = e^{-2i pi ch / K} * FFT_c(V[m, :])[ch]
@@ -88,8 +87,8 @@ def channelizer_init_ctx(prototype_len: int, dtype=jnp.complex64):
 
 
 def _branch_phases(K: int) -> int:
-    """Output phases per GEMM row: the multiple of K nearest one MXU
-    lane width (the band construction needs K | P so the coefficient
+    """Output phases per GEMM row: the multiple of K nearest 128 (the
+    band construction needs K | P so the coefficient
     of output o depends only on o mod P)."""
     return K * max(1, 128 // K)
 
@@ -133,7 +132,7 @@ def _dft_fix_matrix(K: int, dtype) -> np.ndarray:
 def _dft_blockdiag_matrix(K: int, P: int) -> np.ndarray:
     """[P, P] block-diagonal stack of P//K copies of the DFT+fix
     matrix: applies the branch DFT to every frame of a [R, P] GEMM
-    row AT ONCE — full MXU lane utilization and no [frames, K]
+    row AT ONCE — full 128-wide rows and no [frames, K]
     relayout between the branch GEMM and the DFT (the separate
     [., K] x [K, K] matmul ran at K/128 lane utilization).
     Host-side f64."""

@@ -47,14 +47,13 @@ __all__ = [
 
 def fast_atan2(y, x):
     """Octant-reduced degree-15 odd-polynomial atan2, 8.8e-8 rad max
-    error — the XLA-level twin of the fused FM kernel's in-Mosaic
-    atan2 (kernels/fm_chain_pallas.py:_atan2, same coefficients).
+    error; the fused FM kernel (kernels/fm_chain_pallas.py) calls it
+    too.
 
     Why: ``jnp.angle``/``lax.atan2`` lowers to XLA's full-precision
-    expansion, measured 2.0 Gsps standalone on v5e — the single
-    largest stage of every per-sample demod chain.  This polynomial
-    is ~4x faster at ~1e-7 rad, far inside the reference chains'
-    1e-3-rad parity budgets (analog.rs:22-34 uses f32::atan2 whose
+    expansion, the largest stage of a per-sample demod chain.  This
+    polynomial is cheaper at ~1e-7 rad, far inside the reference
+    chains' 1e-3-rad parity budgets (analog.rs:22-34 uses f32::atan2 whose
     own error is ~1e-7).  IEEE signed-zero faithful on the x<0 branch
     cuts (atan2(+-0, -0) = +-pi) like the reference's f32::atan2.
     Estimator ops that feed tolerance-1e-6 oracles keep jnp.angle.
@@ -78,10 +77,9 @@ def fast_atan2(y, x):
     p = p * r2 + jnp.float32(9.999999582e-01)
     a = p * r
     a = jnp.where(swap, jnp.float32(np.pi / 2) - a, a)
-    # signbit is exact for -0.0 AND for +-inf / |x| > 8.5e37, where
-    # the Mosaic kernel's 1/x trick fails (1/x flushes subnormal to
-    # -0.0 on TPU, losing the sign -> a pi-radian error); it is also
-    # cheaper than a division.
+    # signbit is exact for -0.0 AND for +-inf / |x| > 8.5e37, where a
+    # 1/x sign probe fails (1/x flushes to -0.0, losing the sign -> a
+    # pi-radian error); it is also cheaper than a division.
     neg_x = jnp.signbit(x)
     neg_y = jnp.signbit(y)
     a = jnp.where(neg_x, jnp.float32(np.pi) - a, a)
@@ -103,8 +101,8 @@ def fm_demod_block(x, prev, fast: bool = False):
     y is real with the dtype of ``x.real``.
 
     ``fast``: use :func:`fast_atan2` (f32, 5e-7 rad) instead of the
-    exact ``jnp.angle`` — XLA's atan2 alone runs ~2.1 Gsps on v5e and
-    dominates the demod stage.  The default stays exact (this op is
+    exact ``jnp.angle``, whose expansion dominates the demod stage.
+    The default stays exact (this op is
     the reference-parity surface, oracle atol 1e-9 in f64)."""
     x = jnp.asarray(x)
     shifted = jnp.concatenate([prev[None].astype(x.dtype), x[:-1]])
@@ -188,12 +186,12 @@ class TimingEstimator:
     uses fresh zero filter state (timing_estimator.rs:97-103), so the
     estimate is a pure function of the block — ideal for jit.
 
-    TPU formulation — correlation GEMM.  The reference computes
+    Formulation — correlation GEMM.  The reference computes
     ``s = sum_m qout[m] * din[m-ND]`` with ``qout = FIR_q(conj(x)*r)``
     and ``din = x*r`` (``r[k] = exp(-j*pi*k/N)``), which needs three
     materialized full-rate intermediates plus an unaligned
-    product-reduce (measured 8.7 ms at 33M samples on v5e — the
-    receiver's hottest stage).  Exchanging the sums,
+    product-reduce (the receiver's hottest stage).  Exchanging the
+    sums,
 
         s = sum_t q[t] * exp(-j*pi*(ND-t)/N) * g[ND-t],
         g[u] = sum_k r2[k] * x[k] * conj(x[k+u]),   u in [-ND, ND],
@@ -210,13 +208,13 @@ class TimingEstimator:
     diag(s2)(im^T W)`` — the GEMMs read the raw planes).
     Numpy-validated to 3e-14 against the direct form.
 
-    GEMM precision: f32 inputs default to the MXU's native bf16
-    operand mode — measured estimate shift <= 1.2e-4 samples on
-    delayed-QPSK signals (the reference's own tolerance is 0.01,
-    timing_estimator.rs:191) for 2.5x wall-clock (2.5 vs 6.3 ms at
-    33M samples on v5e; the estimate feeds an angle, so split-f32
-    passes buy nothing).  f64 inputs (CPU parity path) always run
-    HIGHEST.  Pass ``precision`` to override.
+    GEMM precision: f32 inputs default to the device's default
+    matmul precision (reduced-precision operands on accelerators) —
+    measured estimate shift <= 1.2e-4 samples on delayed-QPSK signals
+    (the reference's own tolerance is 0.01, timing_estimator.rs:191);
+    the estimate feeds an angle, so split-f32 passes buy nothing.
+    f64 inputs (CPU parity path) always run HIGHEST.  Pass
+    ``precision`` to override.
     """
 
     def __init__(self, n: int, d: int, alpha: float,

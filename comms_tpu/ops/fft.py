@@ -11,12 +11,11 @@ Functional parity with the reference's rustfft wrappers
   reference parity mode keeps that convention; pass
   ``normalize=True`` for the conventional scaled inverse.
 
-TPU-first: blocks are reshaped to [num_ffts, fft_size] and transformed
-with one batched ``jnp.fft.fft`` — XLA lowers to its native TPU FFT.
-The reference upcasts any input to f64 for the transform
-(fft/mod.rs:78-96); on TPU the transform runs in the block's own
-precision (c64), validated against the reference tolerance
-(fft_node.rs:242-244, per-bin error < 1e-5).
+Blocks are reshaped to [num_ffts, fft_size] and transformed with one
+batched ``jnp.fft.fft`` (cuFFT on the GPU).  The reference upcasts any
+input to f64 for the transform (fft/mod.rs:78-96); here the transform
+runs in the block's own precision (c64), validated against the
+reference tolerance (fft_node.rs:242-244, per-bin error < 1e-5).
 """
 
 from __future__ import annotations
@@ -26,8 +25,7 @@ import numpy as np
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["fft_block", "ifft_block", "fft_reblock",
-           "fft_four_step", "fft_large"]
+__all__ = ["fft_block", "ifft_block", "fft_reblock", "fft_four_step"]
 
 
 def fft_block(x, fft_size: int):
@@ -71,57 +69,18 @@ def _complex_like(x):
     return jnp.result_type(x.dtype, jnp.complex64)
 
 
-def fft_large(x, use_pallas=None, interpret: bool = False):
-    """Batched large-N FFT over the last axis (N in 2^16..2^22 with a
-    two-factor decomposition into 256..2048-point stages).
-
-    Routes through the tiled four-step Pallas kernel
-    (:mod:`comms_tpu.kernels.fft_big_pallas` — segment-tile VMEM
-    stages, measured ~8x jnp.fft at 2^20) when supported; falls back
-    to ``jnp.fft.fft`` otherwise.  Complex-in/complex-out shim; the
-    plane-native kernel entry is ``fft_big_pallas_planar``.
-    """
-    import jax
-
-    from comms_tpu.kernels import fft_big_pallas as _FB
-
-    x = jnp.asarray(x)
-    n = int(x.shape[-1])
-    if use_pallas is None:
-        use_pallas = (_FB.supported_big(n)
-                      and jax.devices()[0].platform == "tpu")
-    if not use_pallas:
-        return jnp.fft.fft(x, axis=-1).astype(_complex_like(x))
-    if not _FB.supported_big(n):
-        raise ValueError(
-            f"N={n} has no two-factor decomposition into 256..2048-"
-            "point stages; use use_pallas=False (jnp.fft fallback)")
-    n1, n2 = _FB.factorize(n)
-    lead = x.shape[:-1]
-    rows = x.reshape(-1, n)
-    yr, yi = _FB.fft_big_pallas_planar(
-        jnp.real(rows).astype(jnp.float32),
-        jnp.imag(rows).astype(jnp.float32), n1, n2,
-        interpret=interpret)
-    return lax.complex(yr, yi).reshape(*lead, n)
-
-
 def fft_four_step(x, radix=None, precision=None, inverse: bool = False,
                   scale: float | None = None):
     """Batched FFT over the last axis as TWO DFT MATMULS (four-step /
     Bailey): N = R*C, a cross-block R-point DFT, exact integer-mod
-    twiddles, and a C-point DFT, all MXU-resident.
-
-    On hardware this measured ~1.1x ``jnp.fft.fft`` at N = 1024
-    record-scale scans with parity 1.5e-7 at HIGHEST precision
-    (docs/PERF.md) — the MXU eats the extra FLOPs and the layout stays
-    fusion-friendly.  Same math as the distributed FFT's stages
-    (parallel/dfft.py) collapsed onto one chip.
+    twiddles, and a C-point DFT.  Same math as the distributed FFT's
+    stages (parallel/dfft.py) collapsed onto one device; parity
+    1.5e-7 against numpy at HIGHEST precision.
 
     Args:
       x: [..., N] complex.
       radix: optional (R, C) with R*C = N; default picks the largest
-        R <= 128 dividing N (MXU-width contraction first).
+        R <= 128 dividing N.
       precision: dot precision (default HIGHEST — f32-exact results).
       inverse: conjugate-exponent transform; with the default scale
         (1/N when inverse) this matches ``jnp.fft.ifft``.
@@ -143,7 +102,7 @@ def fft_four_step(x, radix=None, precision=None, inverse: bool = False,
         while R > 1 and N % R:
             R //= 2
         if R == 1 or N // R > 4096:
-            # No MXU-width factor, or the dense C x C DFT matrix would
+            # No 128-wide factor, or the dense C x C DFT matrix would
             # be huge (C = 8192 is already a 512 MB constant and an
             # N*C-flop stage) — the four-step form targets small-to-
             # mid N; for large transforms use jnp.fft or the

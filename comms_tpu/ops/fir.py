@@ -1,9 +1,9 @@
-"""Streaming FIR filtering as MXU-friendly banded-Toeplitz GEMM.
+"""Streaming FIR filtering as a banded-Toeplitz GEMM.
 
 Functional parity with the reference's direct-form FIR
 (``/root/reference/src/filter/fir.rs:43-102`` — per-sample
-``state.rotate_right(1); state[0]=x; sum(taps*state)``) — but designed
-for the TPU: instead of an O(T) memmove per sample, a block of N
+``state.rotate_right(1); state[0]=x; sum(taps*state)``) — but instead
+of an O(T) memmove per sample, a block of N
 samples is filtered as a single matrix product
 
     Y[r, p] = sum_k taps[k] * xext[r*P + p - k + (T-1)]
@@ -11,16 +11,15 @@ samples is filtered as a single matrix product
 
 where ``W`` is the windowed input ([R, T+P-1], rows overlapping by
 T-1 samples, built from two shifted reshapes — no gather) and ``B`` is
-the banded tap matrix ([T+P-1, P]).  With P=128 output phases per row
-the product maps straight onto the MXU; complex inputs use XLA's
-native complex-matmul decomposition.  FIR at typical tap counts is
-HBM-bandwidth bound, so this formulation reaches the same
-speed-of-light as a hand kernel while staying fusable.
+the banded tap matrix ([T+P-1, P]), P=128 output phases per row; XLA
+hands the product to its GEMM library and fuses the window build into
+the operand read; complex inputs use XLA's native complex-matmul
+decomposition.
 
 Streaming semantics: the carried state is the last ``T-1`` input
 samples (time-ordered, oldest first).  Output is independent of how
 the stream is chopped into blocks — the exact property that makes
-time-block sharding across chips correct (SURVEY.md section 5).
+time-block sharding across devices correct (SURVEY.md section 5).
 
 State mapping from the reference: its ``state`` vector holds past
 inputs most-recent-first and its *last* element is shifted out before
@@ -52,7 +51,7 @@ __all__ = [
     "piece_dots_accum",
 ]
 
-# Output phases per GEMM row.  128 = MXU lane width.
+# Output phases per GEMM row.
 _DEFAULT_PHASES = 128
 
 
@@ -111,13 +110,10 @@ def fir_block(x, taps, ctx, phases: int = _DEFAULT_PHASES,
     ``taps`` may be a 1-D tap vector or a precomputed
     ``banded_tap_matrix`` (2-D) whose band length implies T.
 
-    ``precision`` defaults to HIGHEST: the TPU MXU rounds f32 matmul
-    operands to bf16 in its default mode (~3e-3 abs error on unit-scale
-    signals — measured on v5e); FIR is HBM-bandwidth bound at typical
-    tap counts, so the 3-pass full-f32 mode costs no wall-clock and
-    keeps parity with the Rust reference's f32 output.  Pass
-    ``lax.Precision.DEFAULT`` to trade accuracy for MXU throughput on
-    compute-bound configurations.
+    ``precision`` defaults to HIGHEST: an accelerator's default f32
+    matmul mode rounds operands (TF32 on the GPU, ~1e-3 relative),
+    while HIGHEST keeps parity with the Rust reference's f32 output.
+    Pass ``lax.Precision.DEFAULT`` to trade accuracy for throughput.
     """
     x = jnp.asarray(x)
     N = x.shape[0]
@@ -150,7 +146,7 @@ def fir_block(x, taps, ctx, phases: int = _DEFAULT_PHASES,
     if jnp.iscomplexobj(x) and not jnp.iscomplexobj(B):
         # Real taps on complex data: two real GEMMs on the re/im
         # planes (B is shared) instead of a complex GEMM with a zero
-        # imaginary operand — half the MXU passes.
+        # imaginary operand — half the multiply work.
         Wr = _window_rows(jnp.real(xpad), R, P, T)
         Wi = _window_rows(jnp.imag(xpad), R, P, T)
         Br = B.astype(Wr.dtype)
@@ -269,12 +265,9 @@ def fir_decimate_poly(x, Hb, ctx, phases: int = _DEFAULT_PHASES,
     Implementation: a banded GEMM whose output phases stride by D —
     W[r, i] = xe[r*P*D + i] (shifted reshapes, no gather) against
     B2[i, p] = flat_taps[p*D + M*D-1 - i], so 128 kept outputs come
-    from one [., (P-1)*D + M*D] x [., P] matrix product on the MXU.
-    The earlier per-branch VPU formulation (:func:`poly_mac_frames`)
-    keeps the minor dimension at D lanes — D/128 lane utilization,
-    measured at 0.9% of the memory roofline for D=5; this GEMM form
-    measures ~20x faster at identical outputs (docs/bench_real_r3.json
-    vs its successor record).  Real taps with complex input run as two
+    from one [., (P-1)*D + M*D] x [., P] matrix product.  The
+    per-branch elementwise formulation (:func:`poly_mac_frames`) keeps
+    the minor dimension at D elements.  Real taps with complex input run as two
     real GEMMs (re/im planes share the B2 operand).
 
     Output parity: identical to ``fir_block`` + ``[::D]`` when the
@@ -351,8 +344,7 @@ def fir_decimate_traced(x, flat_taps, rate: int, tail_zeros: int = 0,
     — e.g. qpsk_rx folds its cubic-Lagrange interpolator, the traced
     integer timing shift AND the symbol-phase pick into one such
     decimating GEMM (a traced ``jnp.roll`` of the full-rate block
-    measured 16 ms at 33M samples on v5e — ~10x the cost of this
-    formulation; docs/PERF.md).
+    would be a whole extra full-rate pass).
     """
     x = jnp.asarray(x)
     B2, D, P, frames, width = _traced_band_setup(

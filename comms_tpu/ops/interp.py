@@ -5,7 +5,7 @@ leaves correction to the user; a complete receiver needs to apply the
 estimate.  ``fractional_delay`` implements a cubic-Lagrange
 interpolating FIR — four taps computed from the fractional shift mu,
 applied with the same banded machinery as every other FIR, so it runs
-dense on the VPU/MXU and carries streaming state like any op.
+dense arithmetic and carries streaming state like any op.
 
 ``delay_signal(x, d)`` applies a total delay d = integer + fractional
 (d >= 0 advances the estimator convention where estimate = -delay).

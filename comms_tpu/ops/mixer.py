@@ -7,7 +7,7 @@ Functional parity with the reference's per-sample recurrences:
 * ``Nco``  (``/root/reference/src/demodulation/nco.rs:15-78``):
   ``push(perr): phase += dphase + perr; emit exp(j*phase)``.
 
-TPU-first design: the mixer's phase recurrence has the closed form
+Design: the mixer's phase recurrence has the closed form
 ``phase[n] = phase0 + n*dphase`` — a precomputed complex ramp times a
 carried scalar phasor, so the whole block is one fused elementwise
 multiply on the VPU instead of a sequential loop.  The NCO's phase

@@ -5,7 +5,7 @@ Functional parity with the reference's left-shifting Fibonacci LFSR
 ``parity(state & poly_mask)``, output bit = MSB of the state *before*
 the shift, then ``state = (state << 1) | fb``.
 
-TPU-first design: the reference emits one bit per `next_byte()` call —
+Design: the reference emits one bit per `next_byte()` call —
 an irreducibly sequential loop.  But the LFSR step is **linear over
 GF(2)**: ``s[n+1] = A @ s[n] (mod 2)`` with companion matrix ``A``,
 and the n-th output bit is ``msb_row @ A^n @ s0``.  So a whole block
@@ -13,7 +13,7 @@ of N bits is one {0,1} matrix product ``bits = (M @ s0) mod 2`` where
 ``M[n, :] = msb_row @ A^n`` is precomputed on the host, and the
 carried state advances N steps at once via ``s' = (A^N @ s0) mod 2``.
 The device-side work per block is a tiny [N, W] x [W] int8 matmul —
-MXU-friendly and independent of N's sequential depth.
+matmul-shaped and independent of N's sequential depth.
 
 ``PrnSpec`` is the precomputed parameter bundle (host, numpy);
 :func:`prn_block` is the jittable block step.

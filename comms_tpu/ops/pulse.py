@@ -4,8 +4,8 @@ Functional parity with ``PulseNode`` (``/root/reference/src/pulse.rs:36-93``):
 per input symbol, emit ``sps`` samples = FIR(symbol) then FIR(0) x
 (sps-1), with FIR state persisting across symbols and blocks.
 
-TPU-first design: filtering the zero-stuffed stream wastes (sps-1)/sps
-of the MXU work on zeros.  The polyphase identity
+Design: filtering the zero-stuffed stream wastes (sps-1)/sps
+of the multiply work on zeros.  The polyphase identity
 
     y[k*sps + p] = sum_m taps[m*sps + p] * sym[k - m]
 

@@ -5,7 +5,7 @@ Functional parity with ``/root/reference/src/util/rand_node.rs``:
 ``random_bit()`` = Uniform(0, 2) over u8 (:150-152), which produce one
 entropy-seeded sample per call.
 
-TPU-first design: sources generate whole blocks with ``jax.random``
+Design: sources generate whole blocks with ``jax.random``
 (threefry counter-based PRNG).  The carried state is the PRNG key —
 split once per block — so streams are reproducible, checkpointable,
 and identical under any block chopping of the key sequence, unlike

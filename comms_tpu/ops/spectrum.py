@@ -3,15 +3,8 @@
 Beyond the reference (its only spectral tool is the raw FFT node);
 production serving needs live spectrum observability — channel
 occupancy, interference, SNR monitoring.  Welch's method is
-FFT-over-overlapped-windowed-segments + average: pure batched TPU FFT
-work, one jittable function.
-
-On TPU the hot path routes through the fused Pallas PSD kernel
-(:func:`comms_tpu.kernels.fft_pallas.psd_pallas_planar`): window,
-FFT, |.|^2 and the bin accumulation all run VMEM-resident, and —
-because per-bin accumulation is order-insensitive — the kernel skips
-both the segment interleave and the FFT's natural-order unshuffle
-(measured 36 vs 9 Gsps for the XLA formulation, docs/PERF.md).
+FFT-over-overlapped-windowed-segments + average: batched FFT work
+(``jnp.fft``, cuFFT on the GPU), one jittable function.
 """
 
 from __future__ import annotations
@@ -65,86 +58,24 @@ def _segments(x, nperseg: int, noverlap: int):
     return x[idx]
 
 
-def _segment_parts(x, nperseg: int, noverlap: int):
-    """Segment rows WITHOUT the interleave stack (order-free callers
-    only, e.g. Welch accumulation): the k shifted-reshape groups are
-    returned concatenated in group order, exactly ``nseg`` rows total.
-    Returns None when the overlap pattern needs a gather instead."""
-    x = jnp.asarray(x)
-    step = nperseg - noverlap
-    if step <= 0:
-        raise ValueError(f"noverlap {noverlap} must be < nperseg {nperseg}")
-    nseg = (x.shape[0] - noverlap) // step
-    if nseg < 1:
-        raise ValueError(
-            f"signal length {x.shape[0]} shorter than one segment "
-            f"({nperseg})"
-        )
-    if nperseg % step:
-        return None
-    k = nperseg // step
-    parts = []
-    for o in range(k):
-        m = -(-(nseg - o) // k) if nseg > o else 0
-        if m:
-            parts.append(
-                x[o * step: o * step + m * nperseg].reshape(m, nperseg))
-    return jnp.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
-
-
-def _auto_use_pallas(nperseg: int, big: bool = False) -> bool:
-    """``big=True`` additionally admits the tiled four-step kernel's
-    sizes (2^16..2^22) — only welch_psd has that route; spectrogram's
-    pallas branch is the small per-segment kernel alone."""
-    if jax.devices()[0].platform != "tpu":
-        return False
-    from comms_tpu.kernels import fft_big_pallas as _FB
-    from comms_tpu.kernels import fft_pallas as _FP
-
-    return _FP.supported(nperseg) or (big and _FB.supported_big(nperseg))
-
-
 def welch_psd_planar(re, im, nperseg: int = 1024, window=None,
-                     fs: float = 1.0, onesided: bool = False,
-                     interpret: bool = False):
-    """Plane-native Welch PSD at the standard 50% overlap — the
-    serving path: raw f32 re/im planes go straight into the
-    segment-free Pallas accumulator (no complex materialization, no
-    segment expansion).  Requires TPU-supported nperseg and block
-    length a multiple of ``rows_per_step(nperseg) * nperseg``;
-    ``welch_psd`` is the general entry."""
-    from comms_tpu.kernels import fft_pallas as _FP
-
-    nperseg = int(nperseg)
-    re = jnp.asarray(re)
-    im = jnp.asarray(im)
-    if window is None:
-        w = hann(nperseg)
-        wpow = float(np.sum(w ** 2))
-        scale = 1.0 / (fs * wpow)
-    elif isinstance(window, jax.Array):
-        w = window.astype(jnp.float32)
-        scale = 1.0 / (fs * jnp.sum(w ** 2))
-    else:
-        w = np.asarray(window)
-        scale = 1.0 / (fs * float(np.sum(w ** 2)))
-    nseg = 2 * (int(re.shape[0]) // nperseg) - 1
-    acc = _FP.psd_stream_pallas_planar(re, im, w, n=nperseg,
-                                       demean=True, interpret=interpret)
-    psd = acc * jnp.asarray(scale / nseg, jnp.float32)
-    return _fold(psd, nperseg, fs, onesided)
+                     fs: float = 1.0, onesided: bool = False):
+    """Plane-native Welch PSD at the standard 50% overlap: raw f32
+    re/im planes in (the serving-ingest layout); otherwise
+    :func:`welch_psd`."""
+    x = jax.lax.complex(jnp.asarray(re, jnp.float32),
+                        jnp.asarray(im, jnp.float32))
+    return welch_psd(x, nperseg=nperseg, window=window, fs=fs,
+                     onesided=onesided)
 
 
 def welch_psd(x, nperseg: int = 1024, noverlap: int | None = None,
-              window=None, fs: float = 1.0, onesided: bool = False,
-              use_pallas=None, interpret: bool = False):
+              window=None, fs: float = 1.0, onesided: bool = False):
     """Welch PSD estimate of a (complex or real) sample block.
 
     Returns ``(freqs, psd)``; density normalization matches the
     standard Welch definition (window power corrected).  ``onesided``
-    folds the spectrum for real inputs.  ``use_pallas`` routes the
-    window+FFT+|.|^2+accumulate through the fused Pallas kernel
-    (``None`` auto-selects it on TPU for supported sizes).
+    folds the spectrum for real inputs.
     """
     x = jnp.asarray(x)
     nperseg = int(nperseg)
@@ -158,64 +89,16 @@ def welch_psd(x, nperseg: int = 1024, noverlap: int | None = None,
         w = np.asarray(window) if window is not None else hann(nperseg)
     if w.shape[0] != nperseg:
         raise ValueError("window length must equal nperseg")
-    if use_pallas is None:
-        use_pallas = _auto_use_pallas(nperseg, big=True)
 
     if traced_w:
         scale = 1.0 / (fs * jnp.sum(w ** 2))
     else:
         scale = 1.0 / (fs * float(np.sum(w ** 2)))
-    if use_pallas:
-        from comms_tpu.kernels import fft_big_pallas as _FB
-        from comms_tpu.kernels import fft_pallas as _FP
-
-        small = _FP.supported(nperseg)
-        segs = _segment_parts(x, nperseg, noverlap)
-        # the big-N kernel's transposed window is a host constant, so
-        # traced windows fall through to XLA there
-        if segs is not None and (small or not traced_w):
-            nseg = segs.shape[0]
-            re = jnp.real(segs).astype(jnp.float32)
-            im = (jnp.imag(segs).astype(jnp.float32)
-                  if jnp.iscomplexobj(segs)
-                  else jnp.zeros_like(re))
-            if small:
-                acc = _FP.psd_pallas_planar(
-                    re, im, w, n=nperseg, demean=True,
-                    interpret=interpret)
-            else:
-                acc = _FB.welch_numerator(re, im, w,
-                                          interpret=interpret)
-            psd = acc * jnp.asarray(scale / nseg, jnp.float32)
-            return _fold(psd, nperseg, fs, onesided)
-        # gather-pattern overlaps fall through to the XLA path
-
     segs = _segments(x, nperseg, noverlap)           # [nseg, nperseg]
     segs = segs - jnp.mean(segs, axis=1, keepdims=True)
     wv = w if traced_w else jnp.asarray(w.astype(np.float32))
     xs = segs * wv[None, :]
-    if jax.devices()[0].platform == "tpu":
-        # XLA fallback on TPU (kernel-ineligible contexts): the
-        # four-step DFT-matmul form keeps the FFT on the MXU at
-        # HIGHEST precision.  MEASURED FLOOR NOTE (VERDICT r4 weak-5,
-        # round-5 measurements): this path sits at ~1.6-1.8 Gsps and
-        # is NOT FFT-formulation-bound — the four-step einsum, XLA's
-        # native fft, and a dense windowed-DFT GEMM in the kernels'
-        # Karatsuba split-bf16 scheme all measured within 9% of each
-        # other (1.62 / 1.62 / 1.76 Gsps).  The floor is the
-        # segment-expansion pipeline itself: materializing the 2x
-        # overlapped segments, per-segment demean, window multiply,
-        # and operand splits each re-touch the expanded data in
-        # separate XLA passes.  The production path
-        # (psd_stream_pallas_planar) forms segments IN VMEM and is
-        # measured at ~29 Gsps; this fallback exists for
-        # kernel-ineligible sizes/overlaps and keeps exact f32
-        # parity, so it takes the accuracy-preserving form.
-        from comms_tpu.ops import fft as _fft
-
-        spec = _fft.fft_four_step(xs)
-    else:
-        spec = jnp.fft.fft(xs, axis=1)
+    spec = jnp.fft.fft(xs, axis=1)
     p = jnp.mean(jnp.abs(spec) ** 2, axis=0)
     psd = p * jnp.asarray(scale, p.dtype)
     return _fold(psd, nperseg, fs, onesided)
@@ -234,32 +117,12 @@ def _fold(psd, nperseg: int, fs: float, onesided: bool):
 
 
 def spectrogram(x, nperseg: int = 256, noverlap: int | None = None,
-                window=None, use_pallas=None, interpret: bool = False):
-    """Short-time power spectrogram [time, freq] (fftshifted).
-
-    ``use_pallas`` routes the batched FFT through the VMEM-resident
-    Pallas kernel (``None`` auto-selects on TPU for supported sizes);
-    the windowed segments keep their time order, so this path uses the
-    natural-order FFT kernel rather than the PSD accumulator.
-    """
+                window=None):
+    """Short-time power spectrogram [time, freq] (fftshifted)."""
     x = jnp.asarray(x)
     noverlap = nperseg // 2 if noverlap is None else int(noverlap)
     w = np.asarray(window) if window is not None else hann(nperseg)
-    if use_pallas is None:
-        use_pallas = _auto_use_pallas(int(nperseg))
     segs = _segments(x, int(nperseg), noverlap)
     wv = jnp.asarray(w.astype(np.float32))
-    xs = segs * wv[None, :]
-    if use_pallas:
-        from comms_tpu.kernels import fft_pallas as _FP
-
-        re = jnp.real(xs).astype(jnp.float32)
-        im = (jnp.imag(xs).astype(jnp.float32) if jnp.iscomplexobj(xs)
-              else jnp.zeros_like(re))
-        yr, yi = _FP.fft_pallas_planar(re, im, n=int(nperseg),
-                                       interpret=interpret)
-        p = yr * yr + yi * yi
-    else:
-        spec = jnp.fft.fft(xs, axis=1)
-        p = jnp.abs(spec) ** 2
-    return jnp.fft.fftshift(p, axes=1)
+    spec = jnp.fft.fft(segs * wv[None, :], axis=1)
+    return jnp.fft.fftshift(jnp.abs(spec) ** 2, axes=1)

@@ -4,7 +4,7 @@ Functional parity with the reference tx chains
 (``/root/reference/examples/single_thread_bpsk.rs:16-52`` and
 ``single_thread_qpsk.rs:16-52``: random bits -> symbol map ->
 zero-stuff x sps -> RRC FIR -> scale 8192 -> interleaved i16 file),
-re-derived for the TPU instead of staged:
+re-derived as one GEMM instead of staged:
 
 * The symbol map (``2b - 1``) and the polyphase pulse-shaping GEMM
   (:mod:`comms_tpu.ops.pulse`) are both **affine in the raw bit
@@ -15,7 +15,7 @@ re-derived for the TPU instead of staged:
   host-precomputed banded matrix.  QPSK's stride-2 re/im bit
   deinterleave — measured as the chain's first lane-utilization
   collapse — disappears into ``G``'s band structure.
-* Output rows carry 128 samples per plane (full MXU lane width), re
+* Output rows carry 128 samples per plane (full 128-wide rows), re
   plane in columns ``[0, Pw)`` and im plane in ``[Pw, 2*Pw)`` of one
   GEMM, so every downstream elementwise op (mixer, quantize) runs at
   full lane utilization, unlike the ``[N, 2]``-pair layout whose
@@ -136,8 +136,8 @@ def tx_shape_block(bits, ctx_bits, mats: TxShapeMats,
     the symbol count is not a multiple of the row width).
 
     ``precision=None`` (default) runs the GEMM at
-    ``lax.Precision.HIGH`` — XLA's single-op bf16_x3 algorithm, 2x
-    the MXU rate of the 6-pass f32 HIGHEST it replaces.  The data
+    ``lax.Precision.HIGH`` — XLA's single-op split-operand algorithm,
+    cheaper than the f32 HIGHEST it replaces.  The data
     operand is raw {0,1} bits, EXACT in bfloat16, so only the tap
     matrix G carries split error (~2^-24 relative, ~6e-8 of sample
     scale — far inside the i16 LSB of 1.2e-4).  (A hand-rolled

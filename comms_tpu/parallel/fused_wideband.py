@@ -1,26 +1,23 @@
-"""Sharded fused FM chain: the single-kernel Pallas chain, per chip.
+"""Sharded fused FM chain: the single-kernel chain, per device.
 
-Composes the two flagship capabilities (BASELINE's ">10 Gsps aggregate
-on v5e-16" config): the fused Pallas FM chain
-(:mod:`comms_tpu.kernels.fm_chain_pallas` — u8 planes in, audio out,
-all intermediates in VMEM) runs per shard under ``shard_map`` over a
-1-D time mesh, with each shard's carried context derived from its left
-neighbor's RAW input tail.
+The fused FM kernel (:mod:`comms_tpu.kernels.fm_chain_pallas` —
+interleaved u8 IQ in, audio out) runs per shard under ``shard_map``
+over a 1-D time mesh, with each shard's carried context derived from
+its left neighbor's RAW input tail.
 
-The trick that makes this exact: the fused kernel's wrapper already
-recomputes its block-boundary context from nothing but the last
-``FUSED_TAIL_SAMPLES`` (25,669) raw u8 samples
+This is exact because the kernel's only carried state is the last
+``FUSED_TAIL_SAMPLES`` raw samples before a block
 (:func:`comms_tpu.models.fm_receiver.fused_ctx_from_raw_tail`).  A
-shard boundary IS a block boundary — so one ring ``ppermute`` of the
-u8 tails (2 x 25,669 B per boundary, neighbor-only ICI traffic) plus
-the same local recompute yields bit-identical context to a sequential
-run of ``make_fused_block_fn`` over per-shard-sized blocks.  Shard 0
-uses the carried stream state instead; the next block's stream state
-is recomputed from the global tail (last shard).
+shard boundary IS a block boundary, so one ``ppermute`` of the u8
+tails (2 x 512 B per boundary, neighbor-only traffic) yields the same
+context as a sequential run of ``make_fused_block_fn`` over
+per-shard-sized blocks.  Shard 0 uses the carried stream state
+instead; the next block's stream state is the global tail (last
+shard).
 
 Reference role: the whole-graph concurrency of
-``/root/reference/src/node/mod.rs:275-284`` scaled to a pod slice —
-every chip runs the complete chain on its time slice instead of one
+comms-rs ``src/node/mod.rs:275-284`` scaled to several devices —
+every device runs the complete chain on its time slice instead of one
 thread per node on one machine.
 """
 
@@ -32,10 +29,10 @@ from jax import lax
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
+from comms_tpu.kernels import fm_chain_pallas as _K
 from comms_tpu.models import fm_receiver
 
-__all__ = ["make_sharded_fused_step", "fused_init_state",
-           "make_sharded_band_monitor_step", "TAIL_SAMPLES"]
+__all__ = ["make_sharded_fused_step", "fused_init_state", "TAIL_SAMPLES"]
 
 TAIL_SAMPLES = fm_receiver.FUSED_TAIL_SAMPLES
 
@@ -45,135 +42,48 @@ fused_init_state = fm_receiver.fused_init_state
 
 def make_sharded_fused_step(mesh: Mesh, block: int, axis: str = "time",
                             interpret: bool = False):
-    """jitted ``(state, re_u8[N], im_u8[N]) -> (audio[N/25], state)``
-    with the planar u8 planes and the audio sharded over ``axis``.
+    """jitted ``(state, iq_u8[N, 2]) -> (audio[N/25], state)`` with the
+    interleaved u8 IQ and the audio sharded over ``axis``.
 
-    ``state`` is the fused chain's context dict (replicated;
+    ``state`` is the fused chain's state (replicated;
     :func:`fused_init_state` at stream start) — interchangeable with
     the single-device ``make_fused_block_fn`` state, so a stream can
-    move between one chip and a mesh mid-flight.
+    move between one device and a mesh mid-flight.  ``interpret`` runs
+    the kernel in the Pallas interpreter (CPU tests).
     """
-    from comms_tpu.kernels import fm_chain_pallas as _K
-
     n = mesh.shape[axis]
     if block % n:
         raise ValueError(f"block {block} must divide over {n} shards")
     local_n = block // n
-    if local_n % _K.IN_PER_STEP:
+    if local_n % fm_receiver.FUSED_BLOCK_QUANTUM:
         raise ValueError(
             f"per-shard length {local_n} must be a multiple of the "
-            f"kernel step {_K.IN_PER_STEP}")
-    if local_n < TAIL_SAMPLES:
-        raise ValueError(
-            f"per-shard length {local_n} must cover the raw context "
-            f"tail ({TAIL_SAMPLES})")
+            f"kernel quantum {fm_receiver.FUSED_BLOCK_QUANTUM}")
 
-    def local(state, re_l, im_l):
+    def local(state, iq_l):
         idx = lax.axis_index(axis)
+        tail = iq_l[-TAIL_SAMPLES:]
         if n > 1:
-            perm = [(i, i + 1) for i in range(n - 1)]
-            recv_re = lax.ppermute(re_l[-TAIL_SAMPLES:], axis, perm=perm)
-            recv_im = lax.ppermute(im_l[-TAIL_SAMPLES:], axis, perm=perm)
-        else:
-            recv_re = re_l[-TAIL_SAMPLES:]
-            recv_im = im_l[-TAIL_SAMPLES:]
-        derived = fm_receiver.fused_ctx_from_raw_tail(recv_re, recv_im)
-        # shard 0's left context is the carried stream state (ppermute
-        # delivered zeros there; the derive on zeros is discarded).
-        ctx = {k: jnp.where(idx == 0, state[k], v)
-               for k, v in derived.items()}
-        audio = _K.fm_chain_fused(re_l, im_l, ctx,
-                                  fm_receiver.FM_LPF_TAPS,
-                                  fm_receiver.FM_LPF_TAPS,
-                                  interpret=interpret)
-        return audio
+            tail = lax.ppermute(tail, axis,
+                                perm=[(i, i + 1) for i in range(n - 1)])
+        # shard 0's left context is the carried stream state
+        # (ppermute delivered zeros there).
+        ctx = jnp.where(idx == 0, state,
+                        fm_receiver.fused_ctx_from_raw_tail(tail))
+        return _K.fm_chain_fused(iq_l, ctx, fm_receiver.FM_LPF_TAPS,
+                                 fm_receiver.FM_LPF_TAPS,
+                                 interpret=interpret)
 
     sharded = shard_map(
         local, mesh=mesh,
-        in_specs=(P(), P(axis), P(axis)),
+        in_specs=(P(), P(axis, None)),
         out_specs=P(axis),
         check_vma=False,
     )
 
     @jax.jit
-    def step(state, re_u8, im_u8):
-        audio = sharded(state, re_u8, im_u8)
-        # next block's stream context: the global raw tail (owned by
-        # the last shard; a tiny cross-shard slice under jit).
-        new_state = fm_receiver.fused_ctx_from_raw_tail(
-            re_u8[-TAIL_SAMPLES:], im_u8[-TAIL_SAMPLES:])
-        return audio, new_state
-
-    return step
-
-
-def make_sharded_band_monitor_step(cfg, mesh: Mesh, block: int,
-                                   axis: str = "time",
-                                   interpret: bool = False):
-    """Sharded fused band monitor (the K-receivers composition on a
-    pod slice): the single-Pallas-pass band-monitor kernel
-    (:mod:`comms_tpu.kernels.band_monitor_pallas`) runs per shard
-    under ``shard_map`` over a 1-D time mesh; each shard's carried
-    state — input-tail planes AND packed-spectrum halo — derives from
-    one ring ``ppermute`` of the left neighbor's raw f32 tail through
-    :func:`comms_tpu.models.fm_band_monitor.fused_state_from_raw_tail`
-    (the spectrum tail is re-channelized locally, neighbor-only ICI
-    traffic).  Returns a jitted ``(state, re[N], im[N]) ->
-    (audio[K, N/K/dec], state)`` with input planes and audio's time
-    axis sharded over ``axis``; ``state`` replicated and
-    interchangeable with the single-device
-    ``make_fused_block_fn`` stream mid-flight (to the spectrum-halo
-    recompute's ~1e-5, see fused_state_from_raw_tail)."""
-    from comms_tpu.kernels import band_monitor_pallas as _BM
-    from comms_tpu.models import fm_band_monitor as _M
-
-    n = mesh.shape[axis]
-    if block % n:
-        raise ValueError(f"block {block} must divide over {n} shards")
-    local_n = block // n
-    if local_n % _BM.step_samples():
-        raise ValueError(
-            f"per-shard length {local_n} must be a multiple of the "
-            f"kernel step {_BM.step_samples()}")
-    tail = _M.fused_tail_samples(cfg)
-    if local_n < tail:
-        raise ValueError(
-            f"per-shard length {local_n} must cover the raw context "
-            f"tail ({tail})")
-
-    def local(state, re_l, im_l):
-        idx = lax.axis_index(axis)
-        if n > 1:
-            perm = [(i, i + 1) for i in range(n - 1)]
-            recv_re = lax.ppermute(re_l[-tail:], axis, perm=perm)
-            recv_im = lax.ppermute(im_l[-tail:], axis, perm=perm)
-        else:
-            recv_re = re_l[-tail:]
-            recv_im = im_l[-tail:]
-        derived = _M.fused_state_from_raw_tail(cfg, recv_re, recv_im)
-        # shard 0's left context is the carried stream state (the
-        # ppermute delivered zeros there; the derive is discarded).
-        st = tuple(jnp.where(idx == 0, s, d)
-                   for s, d in zip(state, derived))
-        ctx_r, ctx_i, yh_r, yh_i = st
-        audio, *_ = _BM.band_monitor_pallas_planar(
-            re_l, im_l, cfg.prototype, cfg.audio_taps, cfg.audio_dec,
-            ctx_r, ctx_i, yh_r, yh_i,
-            num_channels=cfg.num_channels, interpret=interpret)
-        return audio                       # [local_frames, K]
-
-    sharded = shard_map(
-        local, mesh=mesh,
-        in_specs=(P(), P(axis), P(axis)),
-        out_specs=P(axis),
-        check_vma=False,
-    )
-
-    @jax.jit
-    def step(state, re, im):
-        audio = sharded(state, re, im)
-        new_state = _M.fused_state_from_raw_tail(
-            cfg, re[-tail:], im[-tail:])
-        return audio.T, new_state          # [K, frames]
+    def step(state, iq_u8):
+        audio = sharded(state, iq_u8)
+        return audio, fm_receiver.fused_ctx_from_raw_tail(iq_u8)
 
     return step

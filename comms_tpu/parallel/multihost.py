@@ -2,10 +2,9 @@
 inter-process transport (SURVEY.md section 2.4, "Inter-process
 distribution").
 
-One SPMD program over (hosts x chips): ``init()`` wraps
-``jax.distributed.initialize`` (env-driven on TPU pods; explicit
-coordinator for manual bring-up), ``pod_mesh`` builds the time mesh
-over every chip in the slice, and ``host_feed`` converts each host's
+One SPMD program over (hosts x devices): ``init()`` wraps
+``jax.distributed.initialize`` (explicit coordinator, process count
+and id), ``pod_mesh`` builds the time mesh over every device, and ``host_feed`` converts each host's
 locally-read IQ blocks into one globally-sharded array — per-host
 file feeding with no cross-host byte shuffling (each host's file
 chunk must correspond to its time slice).
@@ -28,9 +27,9 @@ def init(coordinator_address: Optional[str] = None,
          process_id: Optional[int] = None) -> None:
     """Initialize the multi-host runtime.
 
-    On a TPU pod slice all arguments come from the environment and
-    this is ``jax.distributed.initialize()``; pass them explicitly for
-    manual CPU multi-process bring-up.  Idempotent.
+    Pass the coordinator address (``localhost:<port>`` on one host),
+    the process count and this process's id; on a cluster whose
+    environment JAX can read, they may be omitted.  Idempotent.
     """
     try:
         jax.distributed.initialize(
@@ -48,8 +47,8 @@ def is_coordinator() -> bool:
 
 
 def pod_mesh(name: str = "time") -> Mesh:
-    """1-D mesh over every chip of every host (ICI within a slice;
-    DCN across slices is handled by XLA's collective lowering)."""
+    """1-D mesh over every device of every host (links within and
+    between hosts are handled by XLA's collective lowering)."""
     return Mesh(np.array(jax.devices()), (name,))
 
 

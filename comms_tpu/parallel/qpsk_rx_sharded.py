@@ -26,7 +26,7 @@ module makes that real for the FULL receiver: the round-4 fused core
   corrections, no per-shard quadrant ambiguity.
 
 Collectives: 2 psums of [128, ~230] panels + 2 scalar-psum pairs +
-one MD-1-sample ppermute — ICI-trivial next to the N/n_shards of
+one MD-1-sample ppermute — trivial next to the N/n_shards of
 local work.
 """
 

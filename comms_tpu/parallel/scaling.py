@@ -4,8 +4,8 @@ BASELINE requires "samples/s scaling efficiency measured at 1 chip,
 1 host, and N>=2 hosts (>=85%)".  This harness runs the sharded
 wideband chain at a fixed per-shard block size over growing meshes and
 reports throughput + efficiency vs the 1-shard baseline.  On real
-hardware it measures ICI-halo overhead directly; on the virtual CPU
-mesh it validates the mechanics (the driver's dryrun path).
+devices it measures halo-exchange overhead directly; on the virtual
+CPU mesh it validates the mechanics (the dryrun path).
 """
 
 from __future__ import annotations
@@ -93,9 +93,7 @@ def main(argv=None):
     import jax
 
     if args.platform == "cpu":
-        # the TPU plugin force-registers itself regardless of
-        # JAX_PLATFORMS; the config update (before first backend use)
-        # wins.  The device-count flag must be set before backend init.
+        # The device-count flag must be set before backend init.
         flags = os.environ.get("XLA_FLAGS", "")
         if "xla_force_host_platform_device_count" not in flags:
             os.environ["XLA_FLAGS"] = (
@@ -114,7 +112,7 @@ def main(argv=None):
         "device_kind": jax.devices()[0].device_kind,
         "per_shard": args.per_shard,
         "note": ("MECHANICS ONLY: virtual CPU mesh — validates the "
-                 "collective structure end-to-end, NOT ICI bandwidth. "
+                 "collective structure end-to-end, NOT link bandwidth. "
                  "All virtual devices time-share this host's single "
                  "physical core, so 'efficiency' here measures core "
                  "contention (expect ~1/shards), not halo overhead; "

@@ -1,9 +1,9 @@
 """Time-block sharding over a device mesh with halo exchange.
 
-The TPU-native replacement for BOTH of the reference's concurrency
+The replacement for BOTH of the reference's concurrency
 mechanisms (SURVEY.md section 2.4): thread-pipeline parallelism
 (dissolved into one fused XLA program) and ZMQ inter-process transport
-(replaced by ICI collectives inside ``shard_map``).
+(replaced by XLA collectives inside ``shard_map``).
 
 Model: the sample (time) axis of each block is sharded across the
 mesh axis ``"time"``.  Stateful ops need the last ``halo`` input
@@ -14,7 +14,7 @@ single-device streaming ops — so the same op kernels run unchanged:
     y_local, _ = fir.fir_block(x_local, B, ctx=xh)        # overlap-save
 
 ``halo_exchange`` passes each shard's tail one step right around the
-ring (one ``ppermute`` riding the ICI); shard 0 receives the global
+ring (one ``ppermute``, NCCL on GPUs); shard 0 receives the global
 stream context instead.  ``collect_ctx`` returns the stream context
 for the next block (the global tail, owned by the last shard).
 
@@ -34,7 +34,6 @@ from jax.sharding import Mesh
 __all__ = [
     "time_mesh",
     "halo_exchange",
-    "halo_exchange_rdma",
     "collect_ctx",
     "psum_estimate",
     "corner_turn",
@@ -71,52 +70,6 @@ def halo_exchange(x_local, ctx, halo: int, axis: str = "time"):
     recv = lax.ppermute(tail, axis,
                         perm=[(i, i + 1) for i in range(n - 1)])
     # Shard 0 received nothing (zeros); substitute the stream context.
-    return jnp.where(idx == 0, _cast_like(ctx, x_local), recv)
-
-
-def halo_exchange_rdma(x_local, ctx, halo: int, axis: str = "time",
-                       collective_id: int = 7, interpret=False):
-    """:func:`halo_exchange` via the hand-rolled Pallas RDMA ring
-    (:func:`comms_tpu.kernels.halo_rdma.ring_halo_exchange`) instead
-    of ``lax.ppermute`` — the optimization path for halo-dominated
-    configurations.  Identical contract and outputs.
-
-    Complex streams exchange their re/im planes as two RDMAs (Mosaic
-    kernels do not take complex operands); each consumes its own
-    ``collective_id`` (``collective_id`` and ``collective_id + 1``).
-    ``interpret``: see :func:`ring_halo_exchange` — pass
-    ``pltpu.InterpretParams()`` to run on a virtual CPU mesh.
-    """
-    from comms_tpu.kernels import halo_rdma
-
-    if halo == 0:
-        return x_local[:0]
-    if halo > x_local.shape[0]:
-        raise ValueError(
-            f"halo {halo} exceeds per-shard length {x_local.shape[0]}; "
-            "use larger blocks or fewer shards"
-        )
-    n = lax.axis_size(axis)
-    idx = lax.axis_index(axis)
-    if n == 1:
-        return _cast_like(ctx, x_local)
-    # The kernel DMAs the tail slice straight out of HBM; pass the
-    # tail only so the operand is small either way.
-    tail = x_local[-halo:]
-    if jnp.issubdtype(x_local.dtype, jnp.complexfloating):
-        rr = halo_rdma.ring_halo_exchange(
-            jnp.real(tail), halo, axis, collective_id=collective_id,
-            interpret=interpret)
-        ri = halo_rdma.ring_halo_exchange(
-            jnp.imag(tail), halo, axis, collective_id=collective_id + 1,
-            interpret=interpret)
-        recv = lax.complex(rr, ri)
-    else:
-        recv = halo_rdma.ring_halo_exchange(
-            tail, halo, axis, collective_id=collective_id,
-            interpret=interpret)
-    # The RDMA ring wraps around (shard 0 receives shard n-1's tail);
-    # substitute the carried stream context there, as halo_exchange.
     return jnp.where(idx == 0, _cast_like(ctx, x_local), recv)
 
 

@@ -11,8 +11,8 @@ One ``shard_map`` program over a 1-D ``"time"`` mesh:
       -> decimate /D2
       plus frequency-offset estimate (psum reduction)
 
-All collectives are neighbor ppermutes + one psum — ICI-friendly,
-no all-gathers.  Carried stream state crosses blocks as f32 pairs.
+All collectives are neighbor ppermutes + one psum (neighbour traffic,
+no all-gathers).  Carried stream state crosses blocks as f32 pairs.
 
 This module is the multi-chip "training step" analogue for the
 framework: ``make_sharded_step`` returns a pjit-ted function running
@@ -58,18 +58,11 @@ def init_state(cfg: WidebandConfig):
 
 
 def make_sharded_step(cfg: WidebandConfig, mesh: Mesh,
-                      axis: str = "time", rdma_halo: bool = False,
-                      rdma_interpret=False):
+                      axis: str = "time"):
     """Returns jitted ``(state, iq_pairs[N, 2]) ->
     ((audio[M], freq_est[]), new_state)`` with ``iq_pairs`` sharded
-    over ``axis`` and audio returned sharded the same way.
-
-    ``rdma_halo=True`` routes every halo exchange through the
-    hand-rolled Pallas RDMA ring (:func:`comms_tpu.parallel.sharding.
-    halo_exchange_rdma`) instead of ``lax.ppermute`` — the
-    optimization path for halo-dominated configurations (tiny
-    per-chip blocks).  ``rdma_interpret`` forwards the interpret mode
-    (``pltpu.InterpretParams()`` to run on a virtual CPU mesh)."""
+    over ``axis`` and audio returned sharded the same way.  Halos
+    travel by ``lax.ppermute`` (NCCL on GPUs)."""
     n = mesh.shape[axis]
     if cfg.block % n:
         raise ValueError("block must divide evenly over shards")
@@ -79,16 +72,8 @@ def make_sharded_step(cfg: WidebandConfig, mesh: Mesh,
     T = cfg.num_taps
     B_iq, B_audio = cfg.B_iq, cfg.B_audio
 
-    if rdma_halo:
-        # Fixed, distinct barrier ids per call site (complex streams
-        # consume cid and cid+1 — one RDMA per plane).
-        def hx(xl, ctx, halo, cid):
-            return sh.halo_exchange_rdma(
-                xl, ctx, halo, axis, collective_id=cid,
-                interpret=rdma_interpret)
-    else:
-        def hx(xl, ctx, halo, cid):
-            return sh.halo_exchange(xl, ctx, halo, axis)
+    def hx(xl, ctx, halo):
+        return sh.halo_exchange(xl, ctx, halo, axis)
 
     def local_chain(state, iq_pairs):
         ctx_pairs, prev_pair, actx = state
@@ -96,14 +81,14 @@ def make_sharded_step(cfg: WidebandConfig, mesh: Mesh,
 
         # --- FIR LPF with ring halo (overlap-save).
         ctx = lax.complex(ctx_pairs[:, 0], ctx_pairs[:, 1])
-        halo = hx(x, ctx, T - 1, 2)
+        halo = hx(x, ctx, T - 1)
         y, _ = fir.fir_block(x, B_iq, halo)
         new_ctx = sh.collect_ctx(x, T - 1, axis)
 
         # --- frequency estimate on filtered signal (psum).
         lag = y[1:] * jnp.conj(y[:-1])
         # cross-shard lag-1 term: left neighbor's last y sample.
-        yprev = hx(y, jnp.zeros((1,), y.dtype), 1, 4)
+        yprev = hx(y, jnp.zeros((1,), y.dtype), 1)
         idx = lax.axis_index(axis)
         edge = jnp.where(idx == 0, 0j, y[0] * jnp.conj(yprev[0]))
         fsum = sh.psum_estimate(jnp.sum(lag) + edge, axis)
@@ -115,16 +100,16 @@ def make_sharded_step(cfg: WidebandConfig, mesh: Mesh,
 
         # --- FM demod with 1-sample halo.
         prev_g = lax.complex(prev_pair[0], prev_pair[1])
-        hp = hx(y, prev_g[None], 1, 6)
+        hp = hx(y, prev_g[None], 1)
         shifted = jnp.concatenate([hp, y[:-1]])
-        # polynomial atan2 (5e-7 rad): XLA's atan2 alone measured
-        # 2.1 Gsps on v5e, the chain's largest elementwise stage
+        # polynomial atan2 (5e-7 rad): XLA's exact atan2 is the
+        # chain's largest elementwise stage
         from comms_tpu.ops.demodulation import fast_angle
         d = fast_angle(y * jnp.conj(shifted)).astype(jnp.float32)
         new_prev_c = sh.collect_ctx(y, 1, axis)
 
         # --- audio FIR + decimate.
-        ah = hx(d, actx, T - 1, 8)
+        ah = hx(d, actx, T - 1)
         a, _ = fir.fir_block(d, B_audio, ah)
         new_actx = sh.collect_ctx(d, T - 1, axis)
         audio = a[:: cfg.dec2]
@@ -160,8 +145,7 @@ def _welch_window(fft_size: int, window):
 
 
 def make_sharded_psd(fft_size: int, mesh: Mesh, axis: str = "time",
-                     window=None, local_radix=None, use_pallas=None,
-                     interpret: bool = False):
+                     window=None, local_radix=None):
     """Wideband spectral monitor on a sharded stream: a Welch-averaged
     PSD whose FFT is the distributed transposed FFT
     (:mod:`comms_tpu.parallel.dfft` inlined per shard — the dfft's
@@ -174,37 +158,11 @@ def make_sharded_psd(fft_size: int, mesh: Mesh, axis: str = "time",
     segments are averaged.  Window defaults to periodic Hann;
     normalization matches :func:`comms_tpu.ops.spectrum.welch_psd`
     (fs = 1, density, window power corrected).
-
-    ``use_pallas``: on a trivial (1-shard) mesh with ``fft_size``
-    factorizable into two supported stage lengths, route the whole
-    Welch numerator through the tiled four-step Pallas kernel
-    (:func:`comms_tpu.kernels.fft_big_pallas.psd_big_pallas_planar` —
-    segment spectra never exist in HBM; measured ~8x the jnp.fft
-    formulation at 2^20).  ``None`` auto-selects it on TPU; the
-    multi-shard path always uses the distributed FFT.
     """
-    from comms_tpu.kernels import fft_big_pallas as _FB
     from comms_tpu.parallel import dfft as dfft_mod
 
     n = mesh.shape[axis]
     w32, scale = _welch_window(fft_size, window)
-
-    if use_pallas is None:
-        use_pallas = (n == 1 and _FB.supported_big(fft_size)
-                      and jax.devices()[0].platform == "tpu")
-    if use_pallas:
-        if n != 1:
-            raise ValueError("use_pallas PSD path needs a 1-shard mesh "
-                             "(the multi-shard path is the dfft)")
-
-        @jax.jit
-        def fast(pairs):                         # [B, F, 2]
-            acc = _FB.welch_numerator(pairs[..., 0], pairs[..., 1],
-                                      w32, interpret=interpret)
-            return acc * (scale / pairs.shape[0])
-
-        return fast
-
     d = dfft_mod.make_dfft(fft_size, mesh, axis, local_radix=local_radix)
     local_f = fft_size // n
 
@@ -228,42 +186,26 @@ def make_sharded_psd(fft_size: int, mesh: Mesh, axis: str = "time",
 
 
 def make_sharded_psd_segments(fft_size: int, mesh: Mesh,
-                              axis: str = "time", window=None,
-                              use_pallas=None, interpret: bool = False):
+                              axis: str = "time", window=None):
     """Segment-parallel Welch PSD: the SEGMENT axis is sharded over
-    the mesh (each spectrum fits one chip), every shard runs the tiled
-    four-step PSD kernel (:mod:`comms_tpu.kernels.fft_big_pallas`) on
+    the mesh (each spectrum fits one device), every shard transforms
     its local segments, and ONE psum of the [F] bin accumulators
-    combines the estimate — the data-parallel composition of the big
-    kernel, complementing :func:`make_sharded_psd` (frequency-sharded,
-    for F too large per chip).
+    combines the estimate — complementing :func:`make_sharded_psd`
+    (frequency-sharded, for F too large per device).
 
     Returns jitted ``(pairs[B, fft_size, 2]) -> psd[fft_size]`` with
     ``B`` sharded over ``axis`` (B % mesh size == 0) and the PSD
     replicated.  Window/demean/density semantics match
     :func:`make_sharded_psd` exactly.
     """
-    from comms_tpu.kernels import fft_big_pallas as _FB
-
     n = mesh.shape[axis]
     w32, scale = _welch_window(fft_size, window)
-    if use_pallas is None:
-        use_pallas = (_FB.supported_big(fft_size)
-                      and jax.devices()[0].platform == "tpu")
-    if use_pallas and not _FB.supported_big(fft_size):
-        raise ValueError(f"fft_size {fft_size} has no two-factor "
-                         "decomposition into 256..2048-point stages")
 
     def local(pairs_l):                          # [B/n, F, 2]
-        re = pairs_l[..., 0]
-        im = pairs_l[..., 1]
-        if use_pallas:
-            acc = _FB.welch_numerator(re, im, w32, interpret=interpret)
-        else:
-            x = lax.complex(re, im)
-            x = x - jnp.mean(x, axis=1, keepdims=True)
-            spec = jnp.fft.fft(x * jnp.asarray(w32)[None, :], axis=1)
-            acc = jnp.sum(jnp.abs(spec) ** 2, axis=0)
+        x = lax.complex(pairs_l[..., 0], pairs_l[..., 1])
+        x = x - jnp.mean(x, axis=1, keepdims=True)
+        spec = jnp.fft.fft(x * jnp.asarray(w32)[None, :], axis=1)
+        acc = jnp.sum(jnp.abs(spec) ** 2, axis=0)
         acc = lax.psum(acc, axis)
         b_total = pairs_l.shape[0] * n
         return acc * jnp.float32(scale / b_total)
@@ -279,42 +221,18 @@ def make_sharded_psd_segments(fft_size: int, mesh: Mesh,
 
 def make_sharded_psd_planar(fft_size: int, mesh: Mesh,
                             axis: str = "time", window=None,
-                            local_radix=None, use_pallas=None,
-                            interpret: bool = False):
+                            local_radix=None):
     """Plane-native variant of :func:`make_sharded_psd`: jitted
-    ``(re[B, fft_size], im[B, fft_size]) -> psd[fft_size]``.
-
-    The serving-ingest layout (io/raw_iq unpacks interleaved files to
-    planes): extracting planes from ``[B, F, 2]`` pairs is a 2-lane-
-    minor strided copy measured at 227 GB/s — ~3.5 ms of pure relayout
-    per 32x2^20 block, comparable to the whole PSD kernel.  Window,
-    demean, and density normalization match :func:`make_sharded_psd`.
+    ``(re[B, fft_size], im[B, fft_size]) -> psd[fft_size]`` for the
+    serving-ingest layout (io/raw_iq unpacks interleaved files to
+    planes).  Window, demean, and density normalization match
+    :func:`make_sharded_psd`.
     """
-    from comms_tpu.kernels import fft_big_pallas as _FB
     from comms_tpu.parallel import dfft as dfft_mod
 
     n = mesh.shape[axis]
     w32, scale = _welch_window(fft_size, window)
-    if use_pallas is None:
-        use_pallas = (n == 1 and _FB.supported_big(fft_size)
-                      and jax.devices()[0].platform == "tpu")
-    if use_pallas:
-        if n != 1:
-            raise ValueError("use_pallas PSD path needs a 1-shard mesh")
-
-        @jax.jit
-        def fast(re, im):
-            # [B, F] planes, or PRE-FACTORIZED [B, n1, n2] segment
-            # planes (the serving-ingest shape — skips a measured
-            # ~0.7 ms XLA relayout; see fft_big_pallas._prep)
-            acc = _FB.welch_numerator(re, im, w32, interpret=interpret)
-            return acc * (scale / re.shape[0])
-
-        return fast
-
-    # plane-native dfft/XLA fallback (one complex materialization,
-    # which jnp.fft needs anyway — NOT a stack-to-pairs round trip,
-    # which would re-add two 227 GB/s relayout passes)
+    # one complex materialization, which the FFT needs anyway
     d = dfft_mod.make_dfft(fft_size, mesh, axis, local_radix=local_radix)
     local_f = fft_size // n
 

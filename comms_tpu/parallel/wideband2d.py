@@ -12,7 +12,7 @@ a ``('time', 'chan')`` mesh where
   slice; one overlap-save halo ppermute over the flattened ring,
   prototype length T-1);
 * **corner turn** runs ``all_to_all`` WITHIN each time row over the
-  ``chan`` axis only (ICI-local within a row): device (t, c) then
+  ``chan`` axis only (local within a row): device (t, c) then
   holds ALL frames of time-row t for its K/nc channels;
 * **stage 2 (per-channel FM receivers)** is channel-local with
   1-frame (demod lag) and M*D-1-frame (audio FIR) halos along the
@@ -52,8 +52,9 @@ __all__ = ["mesh_2d", "make_sharded_band_monitor_2d"]
 def mesh_2d(nt: int, nc: int, t_axis: str = "time",
             c_axis: str = "chan") -> Mesh:
     """A ``(nt, nc)`` device grid named ``(t_axis, c_axis)``.  On a
-    real pod pass a topology-aware device order so ``chan`` rows ride
-    one ICI ring; on CPU/virtual meshes the default order is fine."""
+    torus-linked machine pass a topology-aware device order so
+    ``chan`` rows share a ring; on all-to-all links (NVLink) and
+    virtual meshes the default order is fine."""
     devs = jax.devices()
     if nt * nc > len(devs):
         raise ValueError(f"mesh {nt}x{nc} needs {nt * nc} devices, "

@@ -1,4 +1,4 @@
-"""Block/state runtime: the TPU-native replacement for the reference's
+"""Block/state runtime: the replacement for the reference's
 thread-per-node graph runtime (src/node/)."""
 
 from comms_tpu.runtime.block import (  # noqa: F401

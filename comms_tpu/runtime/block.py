@@ -1,4 +1,4 @@
-"""The Block-op protocol: the TPU-native replacement for `Node`.
+"""The Block-op protocol: the replacement for `Node`.
 
 The reference runs each `Node` in its own OS thread, blocking on
 crossbeam channels (``/root/reference/src/node/mod.rs:94-98``,

@@ -20,6 +20,9 @@ from comms_tpu.models import bpsk_tx
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     blocks = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     out = sys.argv[2] if len(sys.argv) > 2 else "bpsk_out.bin"
     n = bpsk_tx.run_to_file(out, blocks)

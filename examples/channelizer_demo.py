@@ -22,6 +22,9 @@ from comms_tpu.models import channelizer
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     K = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     cfg = channelizer.ChannelizerConfig(num_channels=K, block=K * 2048)
     block = channelizer.make_block_fn(cfg)

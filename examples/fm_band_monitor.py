@@ -24,6 +24,9 @@ from comms_tpu.models import fm_band_monitor as fbm
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if len(sys.argv) < 2:
         print(__doc__)
         sys.exit(1)

@@ -23,6 +23,9 @@ from comms_tpu.models import fm_receiver
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if len(sys.argv) < 2:
         print(__doc__)
         sys.exit(1)

@@ -2,12 +2,9 @@
 """Batched multi-stream FM serving: B radio clients per dispatch.
 
 The reference serves N independent flowgraphs as N thread sets
-(/root/reference/src/node/mod.rs:275-284).  The TPU-native analogue
-is ONE program launch carrying all B streams per round
-(runtime.BatchedStreamRunner, mode='unroll' — bit-identical to B
-separate runs, measured 12-30x the launch-bound single-stream rate
-on v5e at realistic per-client block sizes; docs/PERF.md round-5
-serving section).
+(comms-rs src/node/mod.rs:275-284).  Here ONE program launch
+carries all B streams per round (runtime.BatchedStreamRunner,
+mode='unroll' — bit-identical to B separate runs).
 
 Usage: python examples/multi_stream_serving.py cap1.u8 [cap2.u8 ...]
        (each capture is raw interleaved u8 IQ; each gets its own
@@ -24,25 +21,21 @@ import sys
 
 import numpy as np
 
-import jax
-
 from comms_tpu.io import audio as caudio
 from comms_tpu.models import fm_receiver
 from comms_tpu.runtime import BatchedStreamRunner
+from comms_tpu.runtime.compile_cache import enable_compile_cache
 
 
 def _blocks(path, block):
-    """Per-stream source: planar u8 blocks from an interleaved file
-    (short files wrap so every stream yields the same block count)."""
+    """Per-stream source: interleaved u8 ``[block, 2]`` blocks."""
     raw = np.fromfile(path, dtype=np.uint8)
     raw = raw[: 2 * (raw.size // 2)].reshape(-1, 2)
     if raw.shape[0] < block:
         raise SystemExit(f"{path}: shorter than one block ({block})")
     nblk = raw.shape[0] // block
     for b in range(nblk):
-        seg = raw[b * block:(b + 1) * block]
-        yield (np.ascontiguousarray(seg[:, 0]),
-               np.ascontiguousarray(seg[:, 1]))
+        yield raw[b * block:(b + 1) * block]
 
 
 def main():
@@ -50,23 +43,14 @@ def main():
     if not paths:
         print(__doc__)
         sys.exit(1)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    block = (16 * fm_receiver.FUSED_BLOCK_QUANTUM if on_tpu
-             else 25 * 4096)
-    cfg = fm_receiver.FmReceiverConfig(block=block)
-    if on_tpu:                       # fused Pallas chain
-        fblk = fm_receiver.make_fused_block_fn(cfg)
-
-        def step(st, x):
-            return fblk(st, x[0], x[1])
+    enable_compile_cache()
+    cfg = fm_receiver.FmReceiverConfig(
+        block=16 * fm_receiver.FUSED_BLOCK_QUANTUM)
+    if fm_receiver.fused_chain_ok(cfg):      # fused kernel
+        step = fm_receiver.make_fused_block_fn(cfg)
         states = [fm_receiver.fused_init_state() for _ in paths]
-    else:                            # XLA chain (same semantics)
-        blk = fm_receiver.make_block_fn(cfg)
-
-        def step(st, x):
-            import jax.numpy as jnp
-
-            return blk(st, jnp.stack(x, axis=-1))
+    else:                                    # XLA chain (same semantics)
+        step = fm_receiver.make_block_fn(cfg)
         states = [fm_receiver.init_state(cfg) for _ in paths]
 
     sinks = []

@@ -20,6 +20,9 @@ from comms_tpu.models import qpsk_tx
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     blocks = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     out = sys.argv[2] if len(sys.argv) > 2 else "qpsk_out.bin"
     dphase = float(sys.argv[3]) if len(sys.argv) > 3 else 0.0

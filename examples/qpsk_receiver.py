@@ -48,6 +48,9 @@ def make_channel(bits, freq1, freq2, step_at, delay, phase0):
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     n_blocks = int(sys.argv[1]) if len(sys.argv) > 1 else 24
     cfg = qpsk_rx_stream.QpskRxStreamConfig(block=8192)
     rng = np.random.default_rng(0)

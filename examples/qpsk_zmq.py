@@ -26,6 +26,9 @@ from comms_tpu.models import qpsk_stream
 
 
 def main():
+    from comms_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if len(sys.argv) < 3 or sys.argv[1] not in ("send", "recv"):
         print(__doc__)
         sys.exit(1)

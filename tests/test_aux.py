@@ -49,9 +49,14 @@ def test_throughput_meter():
 
 
 def test_roofline_memory_bound():
-    r = metrics.roofline(bytes_moved=819e9, flops=1e9, seconds=1.0)
+    pk = metrics.device_peaks("NVIDIA H100 80GB HBM3")
+    r = metrics.roofline(bytes_moved=3350e9, flops=1e9, seconds=1.0,
+                         hbm_gbps=pk["hbm_gbps"],
+                         peak_tflops=pk["f32_tflops"])
     assert r["bound"] == "memory"
     assert abs(r["pct_of_sol"] - 100.0) < 1.0
+    with _pytest.raises(ValueError, match="no published peaks"):
+        metrics.device_peaks("cpu")
 
 
 def test_net_transport_roundtrip():

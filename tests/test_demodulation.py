@@ -119,7 +119,7 @@ def test_fast_atan2_branch_cuts_and_zeros():
 
 def test_fast_atan2_extreme_magnitudes():
     # review finding: the 1/x sign trick loses the sign for -inf and
-    # for |x| > ~8.5e37 (1/x flushes subnormal to -0 on TPU); signbit
+    # for |x| > ~8.5e37 (1/x flushes subnormal to -0); signbit
     # is exact
     ys = np.array([1.0, 1.0, -1.0, 1.0, 3e38], dtype=np.float32)
     xs = np.array([-np.inf, -3e38, -3e38, np.inf, -1.0],

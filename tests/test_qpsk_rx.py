@@ -142,63 +142,43 @@ def test_fused_core_matches_staged_core():
     assert bf[1] == 0 and bs[1] == 0
 
 
-def test_pallas_sym_kernel_matches_xla_path():
-    """The fused Pallas symbol kernel (kernels/qpsk_sym_pallas,
-    interpret mode on CPU) against the XLA formulation of
-    _fused_symbol_gemm: same estimates, same symbols to f32/phase-
-    rounding tolerance, one-shot AND streaming (carried ctx/phase)."""
-    from comms_tpu.kernels import qpsk_sym_pallas as QS
-    from comms_tpu.models import qpsk_rx_stream
-
+def test_symbol_gemm_context_patch_is_exact():
+    """The streaming form of _fused_symbol_gemm (carried raw tail +
+    block-start phase) equals the one-shot over the concatenated
+    stream, and a zero context equals no context."""
     rng = np.random.default_rng(5)
-    N = QS.IN_PER_STEP          # one grid step is enough on CPU
-    re = rng.normal(size=N).astype(np.float32)
-    im = rng.normal(size=N).astype(np.float32)
-
-    cfg_x = qpsk_rx.QpskRxConfig(use_pallas_sym=False)
-    cfg_k = qpsk_rx.QpskRxConfig(use_pallas_sym=True)
+    N = 4096
+    re = rng.normal(size=2 * N).astype(np.float32)
+    im = rng.normal(size=2 * N).astype(np.float32)
+    cfg = qpsk_rx.QpskRxConfig(gemm_precision=jax.lax.Precision.HIGHEST)
+    C = qpsk_rx.fused_gemm_ctx_len(cfg)
     w = jnp.float32(0.011)
     lag = jnp.asarray([-0.05, 0.7, 0.4, -0.06], jnp.float32)
     for shift2 in (-4, 0, 3):
-        for ctx in (None, (rng.normal(size=43).astype(np.float32),
-                           rng.normal(size=43).astype(np.float32))):
-            args = (jnp.asarray(re), jnp.asarray(im), w, lag,
-                    jnp.int32(shift2))
-            kw = dict(ctx=ctx, phase0=0.31)
-            sx_r, sx_i = qpsk_rx._fused_symbol_gemm(cfg_x, *args, **kw)
-            sk_r, sk_i = qpsk_rx._fused_symbol_gemm(cfg_k, *args, **kw)
-            # tolerance: the two paths decompose the de-rotation
-            # phase differently; their f32 angle rounding diverges
-            # ~1e-4 rad per 1e4 symbols (both exact in the GEMM).
-            scale = float(np.abs(np.asarray(sx_r)).max())
-            np.testing.assert_allclose(
-                np.asarray(sk_r), np.asarray(sx_r), atol=1e-3 * scale,
-                err_msg=f"shift2={shift2} ctx={ctx is not None}")
-            np.testing.assert_allclose(
-                np.asarray(sk_i), np.asarray(sx_i), atol=1e-3 * scale)
+        args = (w, lag, jnp.int32(shift2))
+        a_r, a_i = qpsk_rx._fused_symbol_gemm(
+            cfg, jnp.asarray(re[N:]), jnp.asarray(im[N:]), *args,
+            phase0=0.31)
+        z = np.zeros(C, np.float32)
+        b_r, b_i = qpsk_rx._fused_symbol_gemm(
+            cfg, jnp.asarray(re[N:]), jnp.asarray(im[N:]), *args,
+            ctx=(z, z), phase0=0.31)
+        np.testing.assert_allclose(np.asarray(b_r), np.asarray(a_r),
+                                   atol=1e-5, err_msg=f"shift2={shift2}")
+        np.testing.assert_allclose(np.asarray(b_i), np.asarray(a_i),
+                                   atol=1e-5)
 
-    # stream-level: two blocks of a REAL modulated waveform with CFO
-    # through make_stream_fast_fn on both paths — state evolution
-    # (estimates, carried phases) and symbols must agree.  (On pure
-    # noise the 4th-power fine-carrier angle is chaotic: a 1e-4
-    # rounding difference flips it — not a meaningful comparison.)
-    x, _bits = _tx(seed=9, nbits=N)       # nbits/2 syms -> 2*N samples
-    k = np.arange(len(x))
-    xc = (x * np.exp(1j * (0.004 * k + 0.3))).astype(np.complex64)
-    st_x = qpsk_rx_stream.init_state_fast(cfg_x)
-    st_k = qpsk_rx_stream.init_state_fast(cfg_k)
-    f_x = qpsk_rx_stream.make_stream_fast_fn(cfg_x)
-    f_k = qpsk_rx_stream.make_stream_fast_fn(cfg_k)
-    for b in range(2):
-        seg = xc[b * N:(b + 1) * N]
-        re_b, im_b = jnp.asarray(seg.real), jnp.asarray(seg.imag)
-        yx, st_x = f_x(st_x, re_b, im_b)
-        yk, st_k = f_k(st_k, re_b, im_b)
-        scale = float(np.abs(np.asarray(yx)).max())
-        np.testing.assert_allclose(np.asarray(yk), np.asarray(yx),
-                                   atol=3e-3 * scale,
-                                   err_msg=f"block {b}")
-        for key in st_x:
-            np.testing.assert_allclose(
-                np.asarray(st_k[key]), np.asarray(st_x[key]),
-                atol=1e-3, rtol=1e-3, err_msg=f"state {key}")
+        one_r, one_i = qpsk_rx._fused_symbol_gemm(
+            cfg, jnp.asarray(re), jnp.asarray(im), *args, phase0=0.31)
+        s_r, s_i = qpsk_rx._fused_symbol_gemm(
+            cfg, jnp.asarray(re[N:]), jnp.asarray(im[N:]), *args,
+            ctx=(re[N - C:N], im[N - C:N]),
+            phase0=0.31 + float(w) * N)
+        k = N // cfg.sps
+        scale = float(np.abs(np.asarray(one_r)).max())
+        # tolerance: the block-start phase is rounded once in f32
+        np.testing.assert_allclose(np.asarray(s_r), np.asarray(one_r)[k:],
+                                   atol=1e-4 * scale,
+                                   err_msg=f"stream shift2={shift2}")
+        np.testing.assert_allclose(np.asarray(s_i), np.asarray(one_i)[k:],
+                                   atol=1e-4 * scale)
